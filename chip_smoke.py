@@ -43,7 +43,7 @@ import torch  # noqa: E402
 from repro_torch.core import proxy_detect_fn_streams  # noqa: E402
 from repro_torch.core.stream import BENCHMARK_VIDEOS, SyntheticVideo  # noqa: E402,E501
 from repro_torch.detector import (SSDConfig, init_ssd, make_anchors,  # noqa: E402,E501
-                                  ssd_forward)
+                                  ssd_candidates)
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.obs import TraceRecorder  # noqa: E402
 from repro_torch.kernels import association as kassoc  # noqa: E402
@@ -100,17 +100,6 @@ def nvr_frames(n_cams, n_frames, rate):
         out.append(FrameRequest(f.rid, vids[s % len(vids)].pixels(k),
                                 f.t_arrival, stream_id=s))
     return out, frame_of, videos, dets
-
-
-def ssd_candidates(params, cfg, anchors, images):
-    """The (boxes, scores) the detector hands to NMS, as in
-    ``decode_detections``."""
-    deltas, obj, _ = ssd_forward(params, cfg, images)
-    anc_wh = anchors[:, 2:] - anchors[:, :2]
-    anc_c = (anchors[:, :2] + anchors[:, 2:]) / 2
-    c = anc_c + deltas[..., :2] * anc_wh
-    wh = anc_wh * torch.exp(torch.clamp(deltas[..., 2:], -4, 4))
-    return torch.cat([c - wh / 2, c + wh / 2], -1), torch.sigmoid(obj)
 
 
 def random_boxes(rng, shape, span=1.0, max_wh=0.3):
@@ -173,9 +162,9 @@ def assign_cases(rng):
 # ------------------------------------------------------------- bounds
 def nms_iou_count(boxes, scores, iou_thr, score_thr, max_out,
                   stop_at_zero):
-    """IoUs the tiled algorithm computes on these inputs: a tile of T
-    candidates starting at c0 costs T * (A - c0) IoUs, over the tiles a
-    frame enters (host replay of the greedy loop)."""
+    """IoUs greedy NMS needs on these inputs: each survivor against the
+    later candidates still alive when it is kept, over the tiles a frame
+    enters (host replay of the greedy loop)."""
     boxes = boxes.cpu().numpy().astype(np.float64)
     s = scores.cpu().numpy().astype(np.float32)
     if score_thr is not None:
@@ -191,11 +180,11 @@ def nms_iou_count(boxes, scores, iou_thr, score_thr, max_out,
             if found >= max_out or (stop_at_zero and not ss[c0] > 0):
                 break
             T = min(knms.TILE, A - c0)
-            n += T * (A - c0)
             for i in range(c0, c0 + T):
                 if not alive[i]:
                     continue
                 found += 1
+                n += int(alive[i + 1:].sum())
                 rest = bs[i + 1:]
                 ix = (np.clip(np.minimum(bs[i, 2], rest[:, 2]) -
                               np.maximum(bs[i, 0], rest[:, 0]), 0, None) *
@@ -245,10 +234,26 @@ def phase_build():
                     print(f"[build] {name}: {line.strip()}")
 
 
+def check_counters(b, s, assign_args):
+    """Each wrapper counts one launch where it launches its kernel and
+    nothing where it launches none (an empty batch)."""
+    ops.reset_launches()
+    knms.batched_nms_cuda(b[:0], s[:0], **NMS_KW)
+    kassoc.greedy_assign_cuda(*(a[:0] for a in assign_args),
+                              iou_thr=ASSIGN_THR)
+    check(ops.launches() == {"batched_nms": 0, "greedy_assign": 0},
+          f"launch counted for an empty batch: {ops.launches()}")
+    knms.batched_nms_cuda(b, s, **NMS_KW)
+    kassoc.greedy_assign_cuda(*assign_args, iou_thr=ASSIGN_THR)
+    check(ops.launches() == {"batched_nms": 1, "greedy_assign": 1},
+          f"one launch each counted as {ops.launches()}")
+    print("[counters] empty batch: no launch counted; one call: one each")
+
+
 def phase_kernels(params, cfg, anchors, frames):
     rng = np.random.default_rng(SEED)
     imgs = torch.from_numpy(np.stack([f.image for f in frames[:8]])).to(DEV)
-    ssd_b, ssd_s = ssd_candidates(params, cfg, anchors, imgs)
+    ssd_b, ssd_s, _ = ssd_candidates(params, cfg, imgs, anchors)
     entries = {}
 
     # NMS: exact against the plain version on every case
@@ -332,6 +337,7 @@ def phase_kernels(params, cfg, anchors, frames):
             *sub, iou_thr=ASSIGN_THR), iters=20, warmup=3)
         print(f"[assign-sweep] B={B} T=64 D=32: kernel {t_k:.4f} ms, "
               f"plain {t_p:.4f} ms")
+    check_counters(b, s, args)
     return entries
 
 
@@ -348,7 +354,7 @@ def phase_serve(params, cfg, frames):
     rep = eng.serve(frames)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches = ops.launches()
     n = len(frames)
     n_interp = rep["interpolated"]
     print(f"[serve] {n} frames ({rep['n_streams']} cameras): coverage "

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..kernels import ops as kops
 
 
@@ -88,8 +89,9 @@ def make_anchors(cfg: SSDConfig) -> np.ndarray:
     return np.concatenate(out, 0).astype(np.float32)
 
 
-def init_ssd(cfg: SSDConfig, generator: torch.Generator, device="cpu"):
-    """Random parameters drawn from ``generator``.  They do not
+def init_ssd(cfg: SSDConfig, generator: torch.Generator, device=None):
+    """Random parameters drawn from ``generator``, on ``device`` (None:
+    ``cuda``, raising where no CUDA device exists).  They do not
     reproduce the reference's ``jax.random`` draws; to run the
     reference's weights use ``params_from_numpy``."""
     p = {"backbone": []}
@@ -101,7 +103,7 @@ def init_ssd(cfg: SSDConfig, generator: torch.Generator, device="cpu"):
     out_dim = n_anchor_kinds * (4 + 1 + cfg.n_classes)
     p["head8"] = _conv_init(generator, 3, cfg.channels[-2], out_dim)
     p["head16"] = _conv_init(generator, 3, cfg.channels[-1], out_dim)
-    return params_to(p, device)
+    return params_to(p, resolve_device(device))
 
 
 def params_to(p, device):
@@ -113,10 +115,12 @@ def params_to(p, device):
     return p.to(device)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device=None):
     """The reference's SSD parameter pytree, given as nested dicts and
-    lists of numpy arrays, as the port's parameters: conv kernels go
-    from (kh, kw, in, out) to (out, in, kh, kw)."""
+    lists of numpy arrays, as the port's parameters on ``device`` (as
+    in ``init_ssd``): conv kernels go from (kh, kw, in, out) to
+    (out, in, kh, kw)."""
+    device = resolve_device(device)
     def conv(d):
         w = np.asarray(d["w"], np.float32)
         return {"w": torch.from_numpy(np.ascontiguousarray(
@@ -145,12 +149,10 @@ def ssd_forward(p, cfg: SSDConfig, images):
     return y[..., :4], y[..., 4], y[..., 5:]
 
 
-def decode_detections(p, cfg: SSDConfig, images, anchors, score_thr=0.4,
-                      iou_thr=0.5, max_out=32):
-    """Full inference: forward + box decode + fused batched NMS (one
-    suppression launch for the whole micro-batch; the CUDA kernel for
-    tensors on the card).  Returns per-image (boxes, scores, classes,
-    valid)."""
+def ssd_candidates(p, cfg: SSDConfig, images, anchors):
+    """Forward + box decode: the per-anchor candidates the detector
+    hands to NMS, (boxes (B,A,4) xyxy, scores (B,A), classes (B,A)
+    int32)."""
     deltas, obj, cls_logits = ssd_forward(p, cfg, images)
     anc = anchors
     anc_wh = anc[:, 2:] - anc[:, :2]
@@ -160,6 +162,16 @@ def decode_detections(p, cfg: SSDConfig, images, anchors, score_thr=0.4,
     boxes = torch.cat([c - wh / 2, c + wh / 2], -1)         # (B,A,4)
     scores = torch.sigmoid(obj)
     classes = torch.argmax(cls_logits, -1).to(torch.int32)
+    return boxes, scores, classes
+
+
+def decode_detections(p, cfg: SSDConfig, images, anchors, score_thr=0.4,
+                      iou_thr=0.5, max_out=32):
+    """Full inference: ``ssd_candidates`` + fused batched NMS (one
+    suppression launch for the whole micro-batch; the CUDA kernel for
+    tensors on the card).  Returns per-image (boxes, scores, classes,
+    valid)."""
+    boxes, scores, classes = ssd_candidates(p, cfg, images, anchors)
     # score-thresholding and suppression are fused into the batched NMS;
     # stop_at_zero skips the zero-score tail
     keep, valid = kops.batched_nms(boxes, scores, iou_thr=iou_thr,

@@ -3,7 +3,7 @@
 CUDA kernel for Hopper (``csrc/``, built by ``build``), dispatched by
 tensor device in ``ops``."""
 from . import ops, ref
-from .ops import LAUNCHES, batched_nms, greedy_assign, reset_launches
+from .ops import batched_nms, greedy_assign, launches, reset_launches
 
-__all__ = ["LAUNCHES", "batched_nms", "greedy_assign", "ops", "ref",
+__all__ = ["batched_nms", "greedy_assign", "launches", "ops", "ref",
            "reset_launches"]

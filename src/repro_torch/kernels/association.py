@@ -10,6 +10,7 @@ detection is masked out or the classes differ; then at most
 ``min(T, D)`` greedy steps, each committing the global maximum (first
 in row-major order among equal values) and retiring its row and column,
 until the best remaining pair falls below ``iou_thr``.
+``LAUNCHES`` counts the CUDA kernel's launches.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import torch
 
 from . import build
 from .nms import _pair_iou
+
+LAUNCHES = 0     # kernel launches made by greedy_assign_cuda
 
 
 def greedy_assign_torch(t_boxes, d_boxes, t_mask, d_mask, t_cls, d_cls,
@@ -52,15 +55,15 @@ def greedy_assign_torch(t_boxes, d_boxes, t_mask, d_mask, t_cls, d_cls,
 _LAUNCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 
-MAX_SMEM_BYTES = 227 * 1024
-
 
 def greedy_assign_cuda(t_boxes, d_boxes, t_mask, d_mask, t_cls, d_cls,
                        *, iou_thr=0.3):
     """The CUDA kernel's wrapper: same arguments and result as
     ``greedy_assign_torch``, for tensors on one CUDA device.  Raises on
     any other device, on a missing kernel library and on a failed
-    launch."""
+    launch (a (T, D) cost matrix larger than one CTA's shared memory
+    fails there)."""
+    global LAUNCHES
     launch = build.function("association", "greedy_assign_launch",
                             _LAUNCH_ARGS)
     dev = t_boxes.device
@@ -75,9 +78,6 @@ def greedy_assign_cuda(t_boxes, d_boxes, t_mask, d_mask, t_cls, d_cls,
             or d_mask.shape != (B, D) or d_cls.shape != (B, D)):
         raise ValueError("greedy_assign_cuda: inconsistent shapes "
                          f"{[tuple(a.shape) for a in args]}")
-    if T * D * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"a ({T}, {D}) cost matrix exceeds one CTA's "
-                         "shared memory")
     tb = t_boxes.float().contiguous()
     db = d_boxes.float().contiguous()
     tm = t_mask.bool().contiguous()
@@ -91,6 +91,7 @@ def greedy_assign_cuda(t_boxes, d_boxes, t_mask, d_mask, t_cls, d_cls,
                      float(iou_thr), match.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "greedy_assign_launch")
+        LAUNCHES += 1
     else:
         match.fill_(-1)
     return match

@@ -139,19 +139,15 @@ static size_t greedy_assign_smem_bytes(int T, int D) {
 
 // t_boxes (B, T, 4) f32 xyxy, d_boxes (B, D, 4) f32, t_mask (B, T) bool,
 // d_mask (B, D) bool, t_cls (B, T) i32, d_cls (B, D) i32, all contiguous;
-// match (B, T) i32 output.
+// match (B, T) i32 output.  One CTA takes at most the default 48 KB of
+// dynamic shared memory (T * D <= 12288); a larger cost matrix fails at
+// launch and the error code is returned.
 extern "C" int greedy_assign_launch(const void* t_boxes, const void* d_boxes,
                                     const void* t_mask, const void* d_mask,
                                     const void* t_cls, const void* d_cls,
                                     int B, int T, int D, float iou_thr,
                                     void* match, void* stream) {
   const size_t smem = greedy_assign_smem_bytes(T, D);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   assign_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(t_boxes), static_cast<const float4*>(d_boxes),
       static_cast<const bool*>(t_mask), static_cast<const bool*>(d_mask),

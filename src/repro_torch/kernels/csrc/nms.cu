@@ -140,18 +140,15 @@ static size_t batched_nms_smem_bytes(int A) {
 
 // boxes (B, A, 4) f32, scores (B, A) f32, order (B, A) i32, all sorted per
 // frame and contiguous; keep (B, max_out) i32 and count (B,) i32 outputs.
+// One CTA takes at most the default 48 KB of dynamic shared memory (about
+// 2400 candidates); a larger frame fails at launch and the error code is
+// returned.
 extern "C" int batched_nms_launch(const void* boxes, const void* scores,
                                   const void* order, int B, int A,
                                   int max_out, float iou_thr,
                                   int stop_at_zero, void* keep, void* count,
                                   void* stream) {
   const size_t smem = batched_nms_smem_bytes(A);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   nms_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(boxes), static_cast<const float*>(scores),
       static_cast<const int*>(order), A, max_out, iou_thr, stop_at_zero,

@@ -20,7 +20,7 @@ of a micro-batch:
 intra-tile suppression fixpoint, a per-frame active gate) and is the
 CPU path.  ``batched_nms_cuda`` sorts with ``torch.argsort(stable=True)``
 on the card, exactly as the reference wrapper sorts outside its kernel,
-and launches one CTA per frame.
+and launches one CTA per frame; ``LAUNCHES`` counts its launches.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ import torch
 from . import build
 
 TILE = 32
+LAUNCHES = 0     # kernel launches made by batched_nms_cuda
 
 
 def _pair_iou(a, b):
@@ -109,21 +110,15 @@ _LAUNCH_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p]
 
-MAX_SMEM_BYTES = 227 * 1024
-
-
-def smem_bytes(A: int) -> int:
-    """Dynamic shared memory of one CTA (the launcher in ``csrc/nms.cu``
-    computes the same)."""
-    W = -(-A // TILE)
-    return A * 20 + W * (1 + TILE) * 4
-
 
 def batched_nms_cuda(boxes, scores, *, iou_thr=0.5, score_thr=None,
                      max_out=64, stop_at_zero=False):
     """The CUDA kernel's wrapper: same arguments and results as
     ``batched_nms_torch``, for tensors on a CUDA device.  Raises on any
-    other device, on a missing kernel library and on a failed launch."""
+    other device, on a missing kernel library and on a failed launch (a
+    frame of more candidates than one CTA's shared memory holds fails
+    there)."""
+    global LAUNCHES
     launch = build.function("nms", "batched_nms_launch", _LAUNCH_ARGS)
     if boxes.device.type != "cuda" or scores.device != boxes.device:
         raise ValueError(f"batched_nms_cuda takes CUDA tensors on one "
@@ -135,8 +130,6 @@ def batched_nms_cuda(boxes, scores, *, iou_thr=0.5, score_thr=None,
     if A < 1 or max_out < 1:
         raise ValueError(f"need A >= 1 and max_out >= 1, got {A}, "
                          f"{max_out}")
-    if smem_bytes(A) > MAX_SMEM_BYTES:
-        raise ValueError(f"A={A} candidates exceed one CTA's shared memory")
     bs, ss, order = _sorted_candidates(boxes, scores, score_thr)
     bs, ss = bs.contiguous(), ss.contiguous()
     order = order.to(torch.int32).contiguous()
@@ -148,6 +141,7 @@ def batched_nms_cuda(boxes, scores, *, iou_thr=0.5, score_thr=None,
                      keep.data_ptr(), count.data_ptr(),
                      torch.cuda.current_stream(boxes.device).cuda_stream)
         build.check(err, "batched_nms_launch")
+        LAUNCHES += 1
     valid = (torch.arange(max_out, device=boxes.device)[None, :] <
              count[:, None])
     return keep, valid

@@ -3,9 +3,9 @@
 A tensor on the CPU takes the kernel's plain PyTorch version; any other
 tensor goes to the CUDA kernel's wrapper, which launches the kernel or
 raises.  There is no switch that sends CUDA tensors to the plain
-version and no fallback on failure.  ``LAUNCHES`` counts the CUDA
-kernel launches made through this module, one per call, so a run can
-show that its main path went through the kernels.
+version and no fallback on failure.  Each CUDA wrapper counts its own
+kernel launches; ``launches()`` reads the counts, so a run can show that
+its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -13,15 +13,20 @@ from typing import Dict
 
 import torch
 
+from . import association, nms
 from .association import greedy_assign_cuda, greedy_assign_torch
 from .nms import batched_nms_cuda, batched_nms_torch
 
-LAUNCHES: Dict[str, int] = {"batched_nms": 0, "greedy_assign": 0}
+
+def launches() -> Dict[str, int]:
+    """Kernel launches counted by each CUDA wrapper."""
+    return {"batched_nms": nms.LAUNCHES,
+            "greedy_assign": association.LAUNCHES}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    nms.LAUNCHES = 0
+    association.LAUNCHES = 0
 
 
 def batched_nms(boxes, scores, *, iou_thr=0.5, score_thr=None, max_out=64,
@@ -34,9 +39,7 @@ def batched_nms(boxes, scores, *, iou_thr=0.5, score_thr=None, max_out=64,
               stop_at_zero=stop_at_zero)
     if boxes.device.type == "cpu":
         return batched_nms_torch(boxes, scores, **kw)
-    out = batched_nms_cuda(boxes, scores, **kw)
-    LAUNCHES["batched_nms"] += 1
-    return out
+    return batched_nms_cuda(boxes, scores, **kw)
 
 
 def greedy_assign(t_boxes, d_boxes, *, t_mask=None, d_mask=None,
@@ -64,6 +67,4 @@ def greedy_assign(t_boxes, d_boxes, *, t_mask=None, d_mask=None,
     args = (t_boxes, d_boxes, t_mask, d_mask, t_cls, d_cls)
     if dev.type == "cpu":
         return greedy_assign_torch(*args, iou_thr=iou_thr)
-    out = greedy_assign_cuda(*args, iou_thr=iou_thr)
-    LAUNCHES["greedy_assign"] += 1
-    return out
+    return greedy_assign_cuda(*args, iou_thr=iou_thr)

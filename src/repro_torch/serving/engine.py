@@ -34,20 +34,9 @@ import numpy as np
 import torch
 
 from ..core.scheduler import make_scheduler
+from ..device import resolve_device
 from ..obs.trace import NULL_RECORDER
 from .pipeline import TickPipeline, bucket, chunk_size, confirmed_ids
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device``, or ``cuda`` when it is None.  Raises when CUDA is
-    asked for (explicitly or by default) and no CUDA device exists: the
-    port never carries on on the CPU by itself."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the GPU unless the caller "
-            "passes device='cpu'")
-    return dev
 
 
 @dataclass
@@ -203,7 +192,8 @@ class DetectionEngine:
             self.cfg = cfg or SSDConfig()
             self.params = params_to(
                 params if params is not None else init_ssd(
-                    self.cfg, torch.Generator().manual_seed(seed)),
+                    self.cfg, torch.Generator().manual_seed(seed),
+                    device=self.device),
                 self.device)
             self.anchors = torch.from_numpy(
                 make_anchors(self.cfg)).to(self.device)

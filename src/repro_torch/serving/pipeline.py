@@ -24,6 +24,8 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 # --------------------------------------------------------------- chunking
 def sorted_chunk(frames) -> List:
@@ -110,10 +112,11 @@ def export_track_rows(state, sids) -> Dict[int, dict]:
 
 
 def build_tracker_state(rows0: Optional[Dict[int, dict]], sids, cfg,
-                        device="cpu"):
+                        device=None):
     """Tracker table for streams ``sids`` (batch row ``b`` =
     ``sids[b]``), seeding each stream from its carried row in ``rows0``
-    when present and a fresh row otherwise."""
+    when present and a fresh row otherwise.  ``device`` as in
+    ``tracking.init_state``."""
     from ..tracking import init_state, rows_to_state
     if not rows0:
         return init_state(len(sids), cfg, device=device)
@@ -131,12 +134,13 @@ class TickPipeline:
     """Driver for the tracker end of the tick chain: ``trk.step`` /
     ``trk.coast`` per tick (looked up on the ``tracking`` module, so a
     test can spy on them), ``trk.output`` on demand.  The table lives on
-    ``device``; numpy detection rows are moved there per tick.
+    ``device`` (None: ``cuda``, raising where no CUDA device exists);
+    numpy detection rows are moved there per tick.
     ``launches`` counts tracker ticks, one per ``tick`` or ``coast``."""
 
-    def __init__(self, cfg, *, device="cpu"):
+    def __init__(self, cfg, *, device=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.launches = 0
 
     def seed(self, sids, rows0: Optional[Dict[int, dict]] = None):

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
+
 
 def kf_predict(pos, vel, cov, q: float, dt: float = 1.0):
     """Advance every track one time step under constant velocity.
@@ -45,9 +47,11 @@ def kf_update(pos, vel, cov, z, r: float, gate):
     return pos, vel, cov
 
 
-def init_cov(shape, r: float, p0_vel: float, device="cpu"):
-    """Fresh-track covariance: position pinned to the measurement
-    noise, velocity wide open so the second match locks the velocity."""
+def init_cov(shape, r: float, p0_vel: float, device=None):
+    """Fresh-track covariance on ``device`` (None: ``cuda``): position
+    pinned to the measurement noise, velocity wide open so the second
+    match locks the velocity."""
+    device = resolve_device(device)
     cov = torch.zeros(tuple(shape) + (3,), dtype=torch.float32,
                       device=device)
     cov[..., 0] = r

@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
 from .association import associate, cxcywh_to_xyxy, xyxy_to_cxcywh
 from .kalman import init_cov, kf_predict, kf_update
 
@@ -61,7 +62,10 @@ class TrackerState(NamedTuple):
     next_id: torch.Tensor    # (B,) int32
 
 
-def init_state(batch: int, cfg: TrackerConfig, device="cpu") -> TrackerState:
+def init_state(batch: int, cfg: TrackerConfig, device=None) -> TrackerState:
+    """A fresh (B, T) table on ``device`` (None: ``cuda``, raising where
+    no CUDA device exists)."""
+    device = resolve_device(device)
     B, T = batch, cfg.capacity
     f32, i32 = torch.float32, torch.int32
     return TrackerState(
@@ -205,9 +209,11 @@ def export_rows(state: TrackerState) -> list:
             for b in range(B)]
 
 
-def rows_to_state(rows, cfg: TrackerConfig, device="cpu") -> TrackerState:
-    """Rebuild a (B, T) table from ``len(rows)`` portable rows; a None
-    entry seeds that batch row fresh (== ``init_state``)."""
+def rows_to_state(rows, cfg: TrackerConfig, device=None) -> TrackerState:
+    """Rebuild a (B, T) table on ``device`` (as in ``init_state``) from
+    ``len(rows)`` portable rows; a None entry seeds that batch row fresh
+    (== ``init_state``)."""
+    device = resolve_device(device)
     fresh = init_state(len(rows), cfg, device=device)
     if all(r is None for r in rows):
         return fresh

@@ -32,7 +32,7 @@ def _images(seed, B, size=64):
 
 def test_params_from_numpy_layout(jax_params):
     _, params, tree = jax_params
-    p = tssd.params_from_numpy(tree)
+    p = tssd.params_from_numpy(tree, device="cpu")
     w_j = tree["backbone"][1]["w"]                 # (kh, kw, in, out)
     w_t = p["backbone"][1]["w"].numpy()            # (out, in, kh, kw)
     assert w_t.shape == (w_j.shape[3], w_j.shape[2], 3, 3)
@@ -53,7 +53,7 @@ def test_ssd_forward_matches_reference(jax_params, B):
     cfg, params, tree = jax_params
     imgs = _images(B, B)
     out_j = jssd.ssd_forward(params, cfg, jnp.asarray(imgs))
-    out_t = tssd.ssd_forward(tssd.params_from_numpy(tree),
+    out_t = tssd.ssd_forward(tssd.params_from_numpy(tree, device="cpu"),
                              tssd.SSDConfig(), torch.from_numpy(imgs))
     for a, b in zip(out_j, out_t):
         assert b.shape == a.shape
@@ -76,9 +76,12 @@ def test_same_padding_is_asymmetric_for_stride_two():
 
 def test_init_ssd_deterministic_per_generator():
     cfg = tssd.SSDConfig()
-    a = tssd.init_ssd(cfg, torch.Generator().manual_seed(3))
-    b = tssd.init_ssd(cfg, torch.Generator().manual_seed(3))
-    c = tssd.init_ssd(cfg, torch.Generator().manual_seed(4))
+    a = tssd.init_ssd(cfg, torch.Generator().manual_seed(3),
+                      device="cpu")
+    b = tssd.init_ssd(cfg, torch.Generator().manual_seed(3),
+                      device="cpu")
+    c = tssd.init_ssd(cfg, torch.Generator().manual_seed(4),
+                      device="cpu")
     w = [p["backbone"][0]["w"] for p in (a, b, c)]
     assert torch.equal(w[0], w[1]) and not torch.equal(w[0], w[2])
     assert w[0].shape == (16, 3, 3, 3)
@@ -149,7 +152,7 @@ def test_decode_detections_end_to_end(jax_params):
     out_j = [np.array(a) for a in jssd.decode_detections(
         params, cfg, jnp.asarray(imgs), anchors)]
     out_t = [a.numpy() for a in tssd.decode_detections(
-        tssd.params_from_numpy(tree), tssd.SSDConfig(),
+        tssd.params_from_numpy(tree, device="cpu"), tssd.SSDConfig(),
         torch.from_numpy(imgs), torch.from_numpy(anchors))]
     np.testing.assert_array_equal(out_t[3], out_j[3])
     np.testing.assert_array_equal(out_t[2], out_j[2])

@@ -58,6 +58,45 @@ def test_detection_engine_without_cuda_raises(monkeypatch):
     assert DetectionEngine(device="cpu").device.type == "cpu"
 
 
+def _entry_points():
+    from repro_torch.detector import SSDConfig, init_ssd, params_from_numpy
+    from repro_torch.serving import TickPipeline
+    from repro_torch.serving.pipeline import build_tracker_state
+    from repro_torch.tracking import TrackerConfig, init_state, rows_to_state
+    from repro_torch.tracking.kalman import init_cov
+    cfg = TrackerConfig(capacity=4)
+    w = torch.zeros((1, 1, 1, 1)).numpy()
+    tree = {"backbone": [{"w": w, "b": w[0, 0, 0]}],
+            "head8": {"w": w, "b": w[0, 0, 0]},
+            "head16": {"w": w, "b": w[0, 0, 0]}}
+    return {
+        "TickPipeline": lambda **kw: TickPipeline(cfg, **kw).device,
+        "build_tracker_state": lambda **kw: build_tracker_state(
+            None, [0, 1], cfg, **kw).active.device,
+        "init_state": lambda **kw: init_state(2, cfg, **kw).active.device,
+        "rows_to_state": lambda **kw: rows_to_state(
+            [None], cfg, **kw).active.device,
+        "init_cov": lambda **kw: init_cov((2, 3, 4), 9.0, 25.0,
+                                          **kw).device,
+        "init_ssd": lambda **kw: init_ssd(
+            SSDConfig(channels=(4, 4)), torch.Generator().manual_seed(0),
+            **kw)["head8"]["w"].device,
+        "params_from_numpy": lambda **kw: params_from_numpy(
+            tree, **kw)["head8"]["w"].device,
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_cuda(monkeypatch, name):
+    """Every entry point that places tensors runs on ``cuda`` unless the
+    caller passes ``device="cpu"``; without CUDA the default raises."""
+    make = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    assert make(device="cpu").type == "cpu"
+
+
 def _nms_args(device):
     return (torch.zeros((2, 40, 4), device=device),
             torch.zeros((2, 40), device=device))
@@ -82,13 +121,13 @@ def test_wrappers_raise_when_library_missing(monkeypatch, kernel):
     monkeypatch.setattr(build, "function", missing)
     monkeypatch.setattr(ops, "batched_nms_torch", plain)
     monkeypatch.setattr(ops, "greedy_assign_torch", plain)
-    before = dict(ops.LAUNCHES)
+    before = ops.launches()
     with pytest.raises(build.KernelBuildError):
         if kernel == "batched_nms":
             ops.batched_nms(*_nms_args("meta"), score_thr=0.4)
         else:
             ops.greedy_assign(*_assign_args("meta"))
-    assert ops.LAUNCHES == before
+    assert ops.launches() == before
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -107,12 +146,12 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
         raise AssertionError("a CPU tensor reached the kernel loader")
 
     monkeypatch.setattr(build, "function", no_build)
-    before = dict(ops.LAUNCHES)
+    before = ops.launches()
     keep, valid = ops.batched_nms(*_nms_args("cpu"))
     match = ops.greedy_assign(*_assign_args("cpu"))
     assert keep.shape == (2, 64) and valid.shape == (2, 64)
     assert match.shape == (2, 6)
-    assert ops.LAUNCHES == before
+    assert ops.launches() == before
 
 
 def test_library_names_track_source_and_flags():

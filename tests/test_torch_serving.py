@@ -147,7 +147,7 @@ def test_real_ssd_nvr_serving_matches_reference():
     dj, oj, _ = (np.array(a) for a in jssd.ssd_forward(
         params, cfg, jnp.asarray(imgs)))
     dt, ot, _ = (a.numpy() for a in tssd.ssd_forward(
-        tssd.params_from_numpy(tree), tssd.SSDConfig(),
+        tssd.params_from_numpy(tree, device="cpu"), tssd.SSDConfig(),
         torch.from_numpy(imgs)))
     bj, sj = _decoded(dj, oj, anchors)
     bt, st = _decoded(dt, ot, anchors)
@@ -161,7 +161,8 @@ def test_real_ssd_nvr_serving_matches_reference():
     kw = dict(n_replicas=2, micro_batch=4, service_time=0.2,
               track_and_interpolate=True)
     base = JEngine(cfg=cfg, params=params, **kw).serve(jframes)
-    port = TEngine(cfg=tssd.SSDConfig(), params=tssd.params_from_numpy(tree),
+    port = TEngine(cfg=tssd.SSDConfig(),
+                   params=tssd.params_from_numpy(tree, device="cpu"),
                    device="cpu", **kw).serve(tframes)
     assert base["interpolated"] > 0 and base["coverage"] == 1.0
     assert_reports_match(base, port, float_atol=1e-4)

@@ -45,7 +45,7 @@ def _run_trace(cfg_kw, B, D, ticks, seed, coast_every=4, jump_at=()):
     cfg_j = jtrk.TrackerConfig(**cfg_kw)
     cfg_t = ttrk.TrackerConfig(**cfg_kw)
     rng = np.random.default_rng(seed)
-    sj, st = jtrk.init_state(B, cfg_j), ttrk.init_state(B, cfg_t)
+    sj, st = jtrk.init_state(B, cfg_j), ttrk.init_state(B, cfg_t, device="cpu")
     base = rng.uniform(0, 300, (B, D, 2))
     for t in range(ticks):
         if coast_every and t % coast_every == coast_every - 1:
@@ -85,7 +85,7 @@ def test_eviction_ties_break_to_the_lower_slot():
     cfg_kw = dict(capacity=4, max_coast=20, score_decay=1.0)
     cfg_j, cfg_t = jtrk.TrackerConfig(**cfg_kw), ttrk.TrackerConfig(**cfg_kw)
     B, D = 1, 4
-    sj, st = jtrk.init_state(B, cfg_j), ttrk.init_state(B, cfg_t)
+    sj, st = jtrk.init_state(B, cfg_j), ttrk.init_state(B, cfg_t, device="cpu")
     first = np.array([[[0, 0, 10, 10], [50, 0, 60, 10], [100, 0, 110, 10],
                        [150, 0, 160, 10]]], np.float32)
     scores = np.full((B, D), 0.5, np.float32)
@@ -106,16 +106,17 @@ def test_export_rows_round_trip():
     cfg = ttrk.TrackerConfig()
     rows = ttrk.export_rows(st)
     assert len(rows) == 3 and set(rows[0]) == set(ttrk.TrackerState._fields)
-    back = ttrk.rows_to_state(rows, cfg)
+    back = ttrk.rows_to_state(rows, cfg, device="cpu")
     for f in ttrk.TrackerState._fields:
         assert torch.equal(getattr(back, f), getattr(st, f)), f
     # subset + reorder + a fresh row, like the reference
-    sub = ttrk.rows_to_state([rows[2], None, rows[0]], cfg)
+    sub = ttrk.rows_to_state([rows[2], None, rows[0]], cfg,
+                              device="cpu")
     ref = jtrk.rows_to_state([rows[2], None, rows[0]], jtrk.TrackerConfig())
     for f in ttrk.TrackerState._fields:
         np.testing.assert_array_equal(getattr(sub, f).numpy(),
                                       np.array(getattr(ref, f)), err_msg=f)
-    fresh = ttrk.rows_to_state([None, None], cfg)
+    fresh = ttrk.rows_to_state([None, None], cfg, device="cpu")
     assert not fresh.active.any() and (fresh.track_id == -1).all()
 
 
@@ -137,5 +138,5 @@ def test_kalman_predict_update_match_reference():
     for a, b in zip(uj, ut):
         np.testing.assert_allclose(b.numpy(), np.array(a), rtol=RTOL)
     np.testing.assert_array_equal(
-        tkal.init_cov((2, 3, 4), 9.0, 25.0).numpy(),
+        tkal.init_cov((2, 3, 4), 9.0, 25.0, device="cpu").numpy(),
         np.array(jkal.init_cov((2, 3, 4), 9.0, 25.0)))

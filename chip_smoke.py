@@ -7,20 +7,27 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a into ``build/kernels`` (one nvcc per source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes and at edge cases: ``keep``/``valid`` and
-   ``match`` must be exactly equal (tolerance 0).  Times the kernel, its
-   plain version, and works out the least time the card could take;
+   the serving path's shapes and at edge cases: NMS ``keep``/``valid``,
+   the assignment's ``match``, the ROI crops and the uncropped boxes
+   must be exactly equal (tolerance 0).  Times the kernel, its plain
+   version, and works out the least time the card could take;
 3. serve an NVR trace (4 cameras x 32 frames of ``SyntheticVideo``
    pixels) through ``repro_torch``'s ``DetectionEngine(
    track_and_interpolate=True)`` on ``cuda`` with the real mini-SSD
-   (random weights from a seed): coverage must be 1.0 and both kernels'
-   launch counters, zeroed just before the serve, must be > 0;
-4. check the served path against the CPU: the same engine on
-   ``device="cpu"`` (plain versions) over a short trace with a pinned
-   service time must give the same schedule, detections and track ids.
+   (random weights from a seed): coverage must be 1.0 and the NMS and
+   assignment launch counters, zeroed just before the serve, > 0;
+4. serve the same frames through the transprecise cascade
+   (``catalog=paper_catalog(CASCADE_HEAVY_S)``, ``roi=True``): coverage
+   1.0, at least one model switch, ROI passes, crop and uncrop launches
+   equal to the ROI micro-batches and NMS launches equal to the first-
+   and second-pass micro-batches, all counted from zero just before the
+   serve; the report must equal the same serve on ``device="cpu"``;
+5. check the served paths against the CPU on the oracle detectors
+   (NVR and cascade) and on a short mini-SSD NVR trace: the same
+   schedule, detections and track ids.
 
-``--profile`` adds one more serve under ``torch.profiler`` and prints
-the device time by kernel and the device's busy share.
+``--profile`` adds one more serve of each path under ``torch.profiler``
+and prints the device time by kernel and the device's busy share.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 card's name and power limit are printed before it; the last line is
@@ -48,8 +55,11 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.obs import TraceRecorder  # noqa: E402
 from repro_torch.kernels import association as kassoc  # noqa: E402
 from repro_torch.kernels import nms as knms  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import roi as kroi  # noqa: E402
 from repro_torch.serving import (DetectionEngine, FrameRequest,  # noqa: E402
-                                 make_nvr_streams)
+                                 make_cascade_detect_fn, make_nvr_streams,
+                                 paper_catalog)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -61,6 +71,15 @@ ASSIGN_THR = 0.3
 RATE_FPS = 30.0                 # per camera
 SERVICE_S = 0.025               # per frame and replica: 80 of 120 frames/s
 IOU_FLOPS = 15                  # 4 min/max, 3 sub, 2 clamp, 2 mul, add+sub, div
+# cascade: 2 replicas x (1 / 0.01 s) of the medium model sustain the 120
+# frames/s of 4 cameras with headroom, the heavy model's 100 do not, so
+# the selector climbs once from fast to medium and every later batch
+# takes the ROI second pass
+CASCADE_HEAVY_S = 0.02
+ROI_BOUNDS = (1.0, 1.0)         # the mini-SSD's boxes are normalized
+CROP_INDEX_FLOPS = 9            # add, div, sub, mul, add, mul, floor, 2 clamp
+UNCROP_FLOPS = 18               # 2 sub + 4 x (div, mul, add, mul)
+FORWARD_ATOL = 1e-4             # cuDNN vs CPU conv sums; Kalman ULPs
 
 
 class SmokeFailure(RuntimeError):
@@ -159,6 +178,64 @@ def assign_cases(rng):
     return cases
 
 
+def roi_windows(rng, B, R, span=0.5):
+    """(B, R, 4) normalized xyxy windows inside the frame."""
+    a = rng.uniform(0.0, 0.6, (B, R, 2)).astype(np.float32)
+    b = np.minimum(a + rng.uniform(0.05, span, (B, R, 2)), 1.0)
+    return np.concatenate([a, b.astype(np.float32)], -1)
+
+
+def crop_cases(rng, frames_8):
+    """(name, images, rois, C) on the card; the first is the serve's
+    shapes on the serve's frames."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    cases = []
+    rois = roi_windows(rng, 8, 4)
+    n_rois = rng.integers(0, 5, 8)
+    rois[np.arange(4)[None, :] >= n_rois[:, None]] = 0.0   # zero area
+    cases.append(("serve B=8 R=4 64x64x3 C=64, zero-area rows past n_rois",
+                  frames_8, t(rois), 64))
+    edge = roi_windows(rng, 8, 4)
+    edge[:, :, 2] = 1.0                        # x1 on the frame edge
+    edge[:, 1::2, 3] = 1.0
+    edge[0, 0] = [0.0, 0.0, 1.0, 1.0]
+    cases.append(("frame edge x1=1.0", frames_8, t(edge), 64))
+    cases.append(("downsample C=32", frames_8, t(roi_windows(rng, 8, 4)),
+                  32))
+    cases.append(("upsample C=96", frames_8,
+                  t(roi_windows(rng, 8, 4, span=0.2)), 96))
+    gray = rng.random((3, 48, 80, 1)).astype(np.float32)
+    cases.append(("non-square 48x80 ch=1", t(gray),
+                  t(roi_windows(rng, 3, 4)), 64))
+    # window edges on pixel boundaries of a 60-pixel frame and C = w/2:
+    # every source coordinate is an exact integer, so the floor decides
+    # on the last bit (an FMA would move it)
+    grid = rng.integers(0, 36, (4, 4, 2))
+    edges = (np.concatenate([grid, grid + 24], -1) / np.float32(60))
+    cases.append(("pixel-boundary windows 60x60 C=12",
+                  t(rng.random((4, 60, 60, 3)).astype(np.float32)),
+                  t(edges.astype(np.float32)), 12))
+    return cases
+
+
+def uncrop_cases(rng):
+    """(name, boxes, rois, bounds, C) on the card; the first is the
+    serve's shapes."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    cases = []
+    for name, lead, rlead, bounds, C in (
+            ("serve (8,4,32) rois (8,4,1) bounds (1,1)", (8, 4, 32),
+             (8, 4, 1), ROI_BOUNDS, 64),
+            ("bounds (640,480)", (8, 4, 32), (8, 4, 1), (640, 480), 64),
+            ("N=105 ragged", (3, 5, 7), (3, 5, 7), (123.4, 55.5), 96),
+            ("N=1000 flat", (1000,), (1000,), (1920, 1080), 32)):
+        boxes = rng.uniform(0, C, lead + (4,)).astype(np.float32)
+        rois = roi_windows(rng, 1, int(np.prod(rlead))).reshape(
+            rlead + (4,))
+        cases.append((name, t(boxes), t(rois), bounds, C))
+    return cases
+
+
 # ------------------------------------------------------------- bounds
 def nms_iou_count(boxes, scores, iou_thr, score_thr, max_out,
                   stop_at_zero):
@@ -219,6 +296,36 @@ def assign_bound_ms(args, match):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def crop_bound_ms(images, rois, C):
+    """Bytes: the rois, the output, and each source element the windows
+    gather (the union over a frame's windows, read once)."""
+    B, H, W, ch = images.shape
+    R = rois.shape[1]
+    ys = kroi.crop_indices(rois[..., 1], rois[..., 3], C, H).cpu().numpy()
+    xs = kroi.crop_indices(rois[..., 0], rois[..., 2], C, W).cpu().numpy()
+    src = 0
+    for b in range(B):
+        hit = np.zeros((H, W), bool)
+        for r in range(R):
+            hit[np.ix_(ys[b, r], xs[b, r])] = True
+        src += int(hit.sum())
+    nbytes = 4 * (src * ch + B * R * C * C * ch + rois.numel())
+    ops_ = B * R * 2 * C * CROP_INDEX_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def uncrop_bound_ms(boxes, rois):
+    """Bytes: the boxes and the rois as given, read once, and the
+    output."""
+    N = boxes.numel() // 4
+    nbytes = 4 * (2 * boxes.numel() + rois.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = N * UNCROP_FLOPS / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 # ------------------------------------------------------------- phases
 def phase_build():
     t0 = time.perf_counter()
@@ -234,20 +341,27 @@ def phase_build():
                     print(f"[build] {name}: {line.strip()}")
 
 
-def check_counters(b, s, assign_args):
+def check_counters(b, s, assign_args, crop_args, uncrop_args):
     """Each wrapper counts one launch where it launches its kernel and
     nothing where it launches none (an empty batch)."""
+    imgs, rois, C = crop_args
+    boxes, brois, bounds, bC = uncrop_args
+    calls = lambda k: (  # noqa: E731
+        knms.batched_nms_cuda(b[:k], s[:k], **NMS_KW),
+        kassoc.greedy_assign_cuda(*(a[:k] for a in assign_args),
+                                  iou_thr=ASSIGN_THR),
+        kroi.crop_resize_cuda(imgs[:k], rois[:k], out_size=C),
+        kroi.uncrop_boxes_cuda(boxes[:k], brois[:k], bounds=bounds,
+                               crop_size=bC))
     ops.reset_launches()
-    knms.batched_nms_cuda(b[:0], s[:0], **NMS_KW)
-    kassoc.greedy_assign_cuda(*(a[:0] for a in assign_args),
-                              iou_thr=ASSIGN_THR)
-    check(ops.launches() == {"batched_nms": 0, "greedy_assign": 0},
+    calls(0)
+    check(set(ops.launches().values()) == {0},
           f"launch counted for an empty batch: {ops.launches()}")
-    knms.batched_nms_cuda(b, s, **NMS_KW)
-    kassoc.greedy_assign_cuda(*assign_args, iou_thr=ASSIGN_THR)
-    check(ops.launches() == {"batched_nms": 1, "greedy_assign": 1},
+    calls(None)
+    check(set(ops.launches().values()) == {1},
           f"one launch each counted as {ops.launches()}")
-    print("[counters] empty batch: no launch counted; one call: one each")
+    print("[counters] empty batch: no launch counted; one call: one each "
+          f"({', '.join(ops.launches())})")
 
 
 def phase_kernels(params, cfg, anchors, frames):
@@ -337,7 +451,106 @@ def phase_kernels(params, cfg, anchors, frames):
             *sub, iou_thr=ASSIGN_THR), iters=20, warmup=3)
         print(f"[assign-sweep] B={B} T=64 D=32: kernel {t_k:.4f} ms, "
               f"plain {t_p:.4f} ms")
-    check_counters(b, s, args)
+    entries.update(roi_kernels(rng, imgs))
+    crop, unc = crop_cases(rng, imgs)[0], uncrop_cases(rng)[0]
+    check_counters(b, s, args, crop[1:], unc[1:])
+    return entries
+
+
+def roi_kernels(rng, frames_8):
+    """Crop and uncrop: exact against the plain versions (and the numpy
+    oracles) on every case, then timed at the serve's shapes."""
+    entries = {}
+    worst = 0.0
+    for name, imgs, rois, C in crop_cases(rng, frames_8):
+        ck = kroi.crop_resize_cuda(imgs, rois, out_size=C)
+        cp = kroi.crop_resize_torch(imgs, rois, out_size=C)
+        torch.cuda.synchronize()
+        err = float((ck - cp).abs().max())
+        oracle = torch.equal(ck.cpu(), kref.crop_resize_ref(
+            imgs.cpu(), rois.cpu(), out_size=C))
+        print(f"[crop] {name}: equal={bool(torch.equal(ck, cp))} "
+              f"oracle={oracle} out {tuple(ck.shape)}")
+        check(torch.equal(ck, cp) and oracle,
+              f"crop_resize kernel != plain version on {name}")
+        worst = max(worst, err)
+    _, imgs, rois, C = crop_cases(rng, frames_8)[0]
+    ms = cuda_ms(lambda: kroi.crop_resize_cuda(imgs, rois, out_size=C))
+    plain_ms = cuda_ms(lambda: kroi.crop_resize_torch(imgs, rois,
+                                                      out_size=C),
+                       iters=50, warmup=5)
+    out = torch.empty((8, 4, C, C, 3), dtype=torch.float32, device=DEV)
+    launch = build.function("roi", "crop_resize_launch", kroi._CROP_ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel_ms = cuda_ms(lambda: launch(imgs.data_ptr(), rois.data_ptr(), 8,
+                                       4, 64, 64, 3, C, out.data_ptr(),
+                                       stream))
+    bound, by = crop_bound_ms(imgs, rois, C)
+    entries["crop_resize"] = dict(
+        name="crop_resize", route="cuda",
+        source="src/repro_torch/kernels/csrc/roi.cu",
+        replaces="src/repro/kernels/roi.py:70",
+        max_abs_err=worst, ms=ms, kernel_only_ms=kernel_ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        shape="B=8 R=4 H=W=64 ch=3 C=64")
+    print(f"[crop] B=8 R=4 C=64: wrapper {ms:.4f} ms (kernel alone "
+          f"{kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.2e} ms ({by})")
+    for B in (1, 2, 4, 8):
+        ib, rb = imgs[:B].contiguous(), rois[:B].contiguous()
+        t_k = cuda_ms(lambda: kroi.crop_resize_cuda(ib, rb, out_size=C))
+        t_p = cuda_ms(lambda: kroi.crop_resize_torch(ib, rb, out_size=C),
+                      iters=50, warmup=5)
+        print(f"[crop-sweep] B={B} R=4 C=64: wrapper {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, bound {crop_bound_ms(ib, rb, C)[0]:.2e} ms")
+
+    worst = 0.0
+    for name, boxes, rois, bounds, C in uncrop_cases(rng):
+        kw = dict(bounds=bounds, crop_size=C)
+        uk = kroi.uncrop_boxes_cuda(boxes, rois, **kw)
+        up = kroi.uncrop_boxes_torch(boxes, rois, **kw)
+        torch.cuda.synchronize()
+        err = float((uk - up).abs().max())
+        oracle = torch.equal(uk.cpu(), kref.uncrop_boxes_ref(
+            boxes.cpu(), rois.cpu(), **kw))
+        print(f"[uncrop] {name}: equal={bool(torch.equal(uk, up))} "
+              f"oracle={oracle} N={boxes.numel() // 4}")
+        check(torch.equal(uk, up) and oracle,
+              f"uncrop_boxes kernel != plain version on {name}")
+        worst = max(worst, err)
+    _, boxes, rois, bounds, C = uncrop_cases(rng)[0]
+    kw = dict(bounds=bounds, crop_size=C)
+    ms = cuda_ms(lambda: kroi.uncrop_boxes_cuda(boxes, rois, **kw))
+    plain_ms = cuda_ms(lambda: kroi.uncrop_boxes_torch(boxes, rois, **kw),
+                       iters=50, warmup=5)
+    rfull = rois.expand(boxes.shape).contiguous()
+    out = torch.empty_like(boxes)
+    N = boxes.numel() // 4
+    launch = build.function("roi", "uncrop_boxes_launch",
+                            kroi._UNCROP_ARGS)
+    kernel_ms = cuda_ms(lambda: launch(boxes.data_ptr(), rfull.data_ptr(),
+                                       N, float(C), float(bounds[0]),
+                                       float(bounds[1]), out.data_ptr(),
+                                       stream))
+    bound, by = uncrop_bound_ms(boxes, rois)
+    entries["uncrop_boxes"] = dict(
+        name="uncrop_boxes", route="cuda",
+        source="src/repro_torch/kernels/csrc/roi.cu",
+        replaces="src/repro/kernels/roi.py:130",
+        max_abs_err=worst, ms=ms, kernel_only_ms=kernel_ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        shape="boxes (8,4,32,4) rois (8,4,1,4)")
+    print(f"[uncrop] N={N}: wrapper {ms:.4f} ms (kernel alone "
+          f"{kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.2e} ms ({by})")
+    for B in (1, 2, 4, 8):
+        bb, rb = boxes[:B].contiguous(), rois[:B].contiguous()
+        t_k = cuda_ms(lambda: kroi.uncrop_boxes_cuda(bb, rb, **kw))
+        t_p = cuda_ms(lambda: kroi.uncrop_boxes_torch(bb, rb, **kw),
+                      iters=50, warmup=5)
+        print(f"[uncrop-sweep] B={B} N={bb.numel() // 4}: wrapper "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+              f"{uncrop_bound_ms(bb, rb)[0]:.2e} ms")
     return entries
 
 
@@ -377,16 +590,74 @@ def phase_serve(params, cfg, frames):
               and np.isfinite(r.scores).all(), f"bad response {r.rid}")
     check(launches["batched_nms"] > 0, "NMS kernel never launched")
     check(launches["greedy_assign"] > 0, "assign kernel never launched")
-    return launches, n, wall
+    check(launches["crop_resize"] == launches["uncrop_boxes"] == 0,
+          f"ROI kernels launched without a cascade: {launches}")
+    return launches
 
 
-def phase_profile(params, cfg, frames):
+def cascade_engine(params, cfg, device, recorder=None):
+    return DetectionEngine(cfg=cfg, params=params, n_replicas=2,
+                           catalog=paper_catalog(CASCADE_HEAVY_S), roi=True,
+                           roi_bounds=ROI_BOUNDS, track_and_interpolate=True,
+                           recorder=recorder, device=device)
+
+
+def phase_cascade(params, cfg, frames):
+    """The cascade path on the card, its launch counts against the
+    schedule the recorder saw, and its report against the CPU's."""
+    rec = TraceRecorder()
+    eng = cascade_engine(params, cfg, DEV, rec)
+    eng.warmup()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rep = eng.serve(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    stages = [e["stage"] for e in rec.events if e["kind"] == "stage"]
+    n_det, n_roi = stages.count("detect"), stages.count("roi")
+    n = len(frames)
+    px = rep["roi_pixels"]
+    print(f"[cascade] {n} frames ({rep['n_streams']} cameras), "
+          f"paper_catalog({CASCADE_HEAVY_S}): coverage {rep['coverage']}, "
+          f"models {rep['models']}, switches {rep['model_switches']}, "
+          f"map_estimate {rep['map_estimate']:.4f}, ROI passes "
+          f"{px['passes']} frames in {n_roi} micro-batches, pixel "
+          f"reduction {rep['roi_pixel_reduction']:.4f}, interpolated "
+          f"{rep['interpolated']}, wall {wall:.3f} s ({n / wall:.1f} "
+          f"frames/s)")
+    print(f"[cascade] launches: {launches}; first-pass micro-batches "
+          f"{n_det}, ROI micro-batches {n_roi}")
+    for key in ("detect", "roi", "track"):
+        ms = [v for _, v in rec.series.get(f"stage_ms_{key}/0", [])]
+        print(f"[cascade] host wall stage_ms_{key}: {sum(ms):.2f} ms over "
+              f"{len(ms)} samples (median "
+              f"{float(np.median(ms)) if ms else 0.0:.3f} ms)")
+    check(rep["coverage"] == 1.0, "cascade serve coverage != 1.0")
+    check(rep["model_switches"] >= 1, "the selector never switched")
+    check(px["passes"] > 0 and n_roi > 0, "no ROI second pass ran")
+    check(launches["crop_resize"] == launches["uncrop_boxes"] == n_roi,
+          f"crop/uncrop launches != ROI micro-batches ({n_roi})")
+    check(launches["batched_nms"] == n_det + n_roi,
+          f"NMS launches != first-pass + ROI micro-batches "
+          f"({n_det} + {n_roi})")
+    check(launches["greedy_assign"] > 0, "assign kernel never launched")
+    for r in rep["responses"]:
+        rows = eng.tracker_cfg.capacity if r.interpolated else 32
+        check(r.boxes.shape == (rows, 4) and np.isfinite(r.boxes).all()
+              and np.isfinite(r.scores).all(), f"bad response {r.rid}")
+    cpu = cascade_engine(params, cfg, "cpu").serve(frames)
+    close_report(rep, cpu, "cascade mini-SSD cuda vs cpu", FORWARD_ATOL)
+    print(f"[cascade] report cuda == cpu (discrete exact, floats within "
+          f"{FORWARD_ATOL}): {len(cpu['responses'])} responses, models "
+          f"{cpu['models']}")
+    return launches
+
+
+def phase_profile(label, eng, frames):
     """One more serve under ``torch.profiler``: device time by kernel
     and the device's busy share of the serve's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    eng = DetectionEngine(cfg=cfg, params=params, n_replicas=2,
-                          service_time=SERVICE_S,
-                          track_and_interpolate=True, device=DEV)
     eng.warmup()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -406,11 +677,12 @@ def phase_profile(params, cfg, frames):
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"[profile] serve wall {wall_ms:.2f} ms (profiled), device "
-          f"busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.3f} of wall, "
-          f"{sum(r[1] for r in rows)} device events")
+    print(f"[profile {label}] serve wall {wall_ms:.2f} ms (profiled), "
+          f"device busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.3f} of "
+          f"wall, {sum(r[1] for r in rows)} device events")
     for dev_us, count, key in rows[:15]:
-        print(f"[profile] {dev_us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+        print(f"[profile {label}] {dev_us / 1e3:9.3f} ms {count:6d}x  "
+              f"{key[:90]}")
 
 
 def assert_same_report(a, b, what):
@@ -434,6 +706,38 @@ def assert_same_report(a, b, what):
                               atol=1e-4), f"{what}: rid {ra.rid} {f}")
 
 
+def close_report(a, b, what, atol):
+    """Recursive report comparison: floats (virtual clock, boxes,
+    scores, pixel tallies) within ``atol``, everything discrete (keys,
+    lengths, ints, bools, strings, class ids, track ids) exact."""
+    def walk(x, y, path):
+        if hasattr(x, "__dataclass_fields__"):
+            x, y = vars(x), vars(y)
+        if isinstance(x, dict):
+            check(set(x) == set(y), f"{what}: keys of {path}")
+            for k in x:
+                walk(x[k], y[k], f"{path}.{k}")
+        elif isinstance(x, (list, tuple)):
+            check(len(x) == len(y), f"{what}: length of {path}")
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{path}[{i}]")
+        elif isinstance(x, np.ndarray) or np.ndim(x):
+            u, v = np.asarray(x), np.asarray(y)
+            check(u.shape == v.shape and u.dtype == v.dtype,
+                  f"{what}: {path} shape/dtype")
+            if np.issubdtype(u.dtype, np.floating):
+                err = float(np.abs(u - v).max()) if u.size else 0.0
+                check(err <= atol, f"{what}: {path} differs by {err}")
+            else:
+                check(np.array_equal(u, v), f"{what}: {path} "
+                      f"{u.tolist()} != {v.tolist()}")
+        elif isinstance(x, float):
+            check(abs(x - y) <= atol, f"{what}: {path} {x} != {y}")
+        else:
+            check(x == y, f"{what}: {path} {x!r} != {y!r}")
+    walk(a, b, "report")
+
+
 def phase_parity(params, cfg):
     # oracle detector: the schedule is pure Python, the tracker runs on
     # the card (association kernel) and on the CPU (plain version)
@@ -446,6 +750,25 @@ def phase_parity(params, cfg):
     print(f"[parity] oracle NVR report, cuda == cpu: "
           f"{len(reps[0]['responses'])} responses, "
           f"{reps[0]['interpolated']} interpolated")
+    # oracle cascade: selection, ROI windows and the crop kernel on the
+    # card (its crops unread by the oracle), the tracker on the card;
+    # 16 frames/s fit the medium model's 40 with headroom, not the
+    # heavy model's 20
+    cat = paper_catalog(0.1)
+    bounds = (videos[0].spec.width, videos[0].spec.height)
+    kw = dict(n_replicas=2, catalog=cat, roi=True, roi_bounds=bounds,
+              track_and_interpolate=True)
+    reps = [DetectionEngine(detect_fn=make_cascade_detect_fn(
+                videos, frame_of, cat), device=d, **kw).serve(frames)
+            for d in (DEV, "cpu")]
+    assert_same_report(*reps, "oracle cascade cuda vs cpu")
+    for k in ("models", "model_of_frame", "model_switches", "roi_pixels",
+              "roi_pixel_reduction", "map_estimate"):
+        check(reps[0][k] == reps[1][k], f"oracle cascade cuda vs cpu: {k}")
+    check(reps[0]["roi_pixels"]["passes"] > 0, "oracle cascade: no ROI pass")
+    print(f"[parity] oracle cascade report, cuda == cpu: models "
+          f"{reps[0]['models']}, switches {reps[0]['model_switches']}, "
+          f"ROI passes {reps[0]['roi_pixels']['passes']}")
     # real mini-SSD + NMS kernel + tracker on a short trace
     frames, *_ = nvr_frames(2, 8, rate=8.0)
     kw = dict(cfg=cfg, n_replicas=2, micro_batch=4, service_time=0.05,
@@ -481,16 +804,26 @@ def main() -> int:
     phase_build()
     cfg = SSDConfig()
     params = init_ssd(cfg, torch.Generator().manual_seed(SEED), device=DEV)
+    # the draws of init_ssd may change with the PyTorch version: this
+    # checksum tells whether a CPU rehearsal served the same weights
+    absw = [p["w"].abs().sum() for p in params["backbone"]] + [
+        params[h]["w"].abs().sum() for h in ("head8", "head16")]
+    print(f"[weights] init_ssd seed {SEED}: sum |w| "
+          f"{float(torch.stack(absw).sum()):.6f}")
     anchors = torch.from_numpy(make_anchors(cfg)).to(DEV)
     frames, *_ = nvr_frames(4, 32, rate=RATE_FPS)
     entries = phase_kernels(params, cfg, anchors, frames)
-    launches, n_frames, wall = phase_serve(params, cfg, frames)
+    by_path = {"nvr": phase_serve(params, cfg, frames),
+               "cascade": phase_cascade(params, cfg, frames)}
     for k, e in entries.items():
-        e["launches"] = launches[k]
-        e["launches_per_frame"] = launches[k] / n_frames
+        e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
     phase_parity(params, cfg)
     if "--profile" in sys.argv[1:]:
-        phase_profile(params, cfg, frames)
+        phase_profile("nvr", DetectionEngine(
+            cfg=cfg, params=params, n_replicas=2, service_time=SERVICE_S,
+            track_and_interpolate=True, device=DEV), frames)
+        phase_profile("cascade", cascade_engine(params, cfg, DEV), frames)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(gpu_line())

@@ -3,7 +3,8 @@
 CUDA kernel for Hopper (``csrc/``, built by ``build``), dispatched by
 tensor device in ``ops``."""
 from . import ops, ref
-from .ops import batched_nms, greedy_assign, launches, reset_launches
+from .ops import (batched_nms, crop_resize, greedy_assign, launches,
+                  reset_launches, uncrop_boxes)
 
-__all__ = ["batched_nms", "greedy_assign", "launches", "ops", "ref",
-           "reset_launches"]
+__all__ = ["batched_nms", "crop_resize", "greedy_assign", "launches",
+           "ops", "ref", "reset_launches", "uncrop_boxes"]

@@ -13,20 +13,26 @@ from typing import Dict
 
 import torch
 
-from . import association, nms
+from . import association, nms, roi
 from .association import greedy_assign_cuda, greedy_assign_torch
 from .nms import batched_nms_cuda, batched_nms_torch
+from .roi import (crop_resize_cuda, crop_resize_torch, uncrop_boxes_cuda,
+                  uncrop_boxes_torch)
 
 
 def launches() -> Dict[str, int]:
     """Kernel launches counted by each CUDA wrapper."""
     return {"batched_nms": nms.LAUNCHES,
-            "greedy_assign": association.LAUNCHES}
+            "greedy_assign": association.LAUNCHES,
+            "crop_resize": roi.CROP_LAUNCHES,
+            "uncrop_boxes": roi.UNCROP_LAUNCHES}
 
 
 def reset_launches() -> None:
     nms.LAUNCHES = 0
     association.LAUNCHES = 0
+    roi.CROP_LAUNCHES = 0
+    roi.UNCROP_LAUNCHES = 0
 
 
 def batched_nms(boxes, scores, *, iou_thr=0.5, score_thr=None, max_out=64,
@@ -68,3 +74,22 @@ def greedy_assign(t_boxes, d_boxes, *, t_mask=None, d_mask=None,
     if dev.type == "cpu":
         return greedy_assign_torch(*args, iou_thr=iou_thr)
     return greedy_assign_cuda(*args, iou_thr=iou_thr)
+
+
+def crop_resize(images, rois, *, out_size):
+    """ROI crop + nearest-neighbour resize for the cascade's second
+    pass: images (B, H, W, ch), rois (B, R, 4) normalized xyxy -> crops
+    (B, R, C, C, ch) float32, C = ``out_size``; see ``kernels.roi``."""
+    if images.device.type == "cpu":
+        return crop_resize_torch(images, rois, out_size=out_size)
+    return crop_resize_cuda(images, rois, out_size=out_size)
+
+
+def uncrop_boxes(boxes, rois, *, bounds, crop_size):
+    """Second-pass boxes from crop pixels back to the parent frame:
+    boxes (..., 4) in [0, crop_size], rois (..., 4) normalized windows
+    (broadcast), bounds = (W, H); see ``kernels.roi``."""
+    kw = dict(bounds=tuple(bounds), crop_size=crop_size)
+    if boxes.device.type == "cpu":
+        return uncrop_boxes_torch(boxes, rois, **kw)
+    return uncrop_boxes_cuda(boxes, rois, **kw)

@@ -1,9 +1,12 @@
 """Plain-loop oracles for the kernels on the serving path: the PyTorch
 counterparts of the reference package's ``kernels/ref.py`` NMS and
-association oracles.  Slow and obvious on purpose; the tests hold the
-batched plain versions and the CUDA kernels against them."""
+association oracles, and copies of its numpy ROI crop / uncrop oracles
+(float32 index math, returning tensors).  Slow and obvious on purpose;
+the tests hold the batched plain versions and the CUDA kernels against
+them."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -82,3 +85,46 @@ def greedy_assign_ref(t_boxes, d_boxes, t_mask, d_mask, t_cls=None,
             cost[i, :] = -1.0
             cost[:, j] = -1.0
     return match
+
+
+def crop_resize_ref(images, rois, *, out_size: int):
+    """Nearest-neighbour ROI crop oracle (numpy loops, float32 index
+    math: the bit-compatibility reference for ``kernels.roi``).
+
+    images (B, H, W, ch), rois (B, R, 4) normalized xyxy ->
+    crops (B, R, C, C, ch) float32 tensor, C = out_size."""
+    images = np.asarray(images)
+    rois = np.asarray(rois, np.float32)
+    B, H, W, ch = images.shape
+    R = rois.shape[1]
+    C = out_size
+    f = (np.arange(C, dtype=np.float32) + np.float32(0.5)) / np.float32(C)
+    out = np.zeros((B, R, C, C, ch), np.float32)
+    for b in range(B):
+        for r in range(R):
+            x0, y0, x1, y1 = rois[b, r]
+            ys = np.clip(np.floor((y0 + f * (y1 - y0)) * np.float32(H)),
+                         0, H - 1).astype(np.int64)
+            xs = np.clip(np.floor((x0 + f * (x1 - x0)) * np.float32(W)),
+                         0, W - 1).astype(np.int64)
+            out[b, r] = images[b].astype(np.float32)[ys][:, xs]
+    return torch.from_numpy(out)
+
+
+def uncrop_boxes_ref(boxes, rois, *, bounds, crop_size: int):
+    """Crop-space -> parent-frame box mapping oracle for ``kernels.roi``.
+
+    boxes (..., 4) xyxy in [0, crop_size] pixels, rois (..., 4)
+    normalized parent windows (broadcast), bounds = (W, H) -> float32
+    tensor of the boxes' shape."""
+    W, H = np.float32(bounds[0]), np.float32(bounds[1])
+    b = np.asarray(boxes, np.float32)
+    r = np.broadcast_to(np.asarray(rois, np.float32), b.shape)
+    C = np.float32(crop_size)
+    out = np.stack([
+        (r[..., 0] + b[..., 0] / C * (r[..., 2] - r[..., 0])) * W,
+        (r[..., 1] + b[..., 1] / C * (r[..., 3] - r[..., 1])) * H,
+        (r[..., 0] + b[..., 2] / C * (r[..., 2] - r[..., 0])) * W,
+        (r[..., 1] + b[..., 3] / C * (r[..., 3] - r[..., 1])) * H,
+    ], axis=-1)
+    return torch.from_numpy(np.ascontiguousarray(out))

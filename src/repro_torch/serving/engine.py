@@ -26,6 +26,7 @@ the plain PyTorch versions of the kernels (what the CPU tests do); on
 """
 from __future__ import annotations
 
+import inspect
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
@@ -93,6 +94,10 @@ class ReplicaExecutor:
         self.n_processed = 0
         self.ewma_service = None
         self._last_wall = 0.1
+        # loadable-model catalog (serving.models.ModelCatalog), attached
+        # by the owning engine.  It travels with the executor, so replica
+        # lending can move a guest's home catalog into another pool.
+        self.catalog = None
 
     @property
     def mu_effective(self) -> float:
@@ -156,9 +161,27 @@ class DetectionEngine:
       module docstring).
     * ``carry_tracks=False`` opts out of seeding the tracker from
       carried portable rows (``serve(stream_tracks=...)``).
+    * ``catalog=`` gives every replica a ``serving.models.ModelCatalog``
+      of loadable model profiles and turns on per-micro-batch model
+      selection (``serving.cascade.ModelSelector``, tuned by
+      ``selector_kw``): the heaviest model whose pooled ``mu`` sustains
+      the arrival-rate estimate, degrade under backlog pressure,
+      hysteretic upgrade when slack returns.  ``roi=True`` adds the
+      hierarchical second pass (``pipeline.roi_second_pass``) whenever
+      a lighter model was selected: the first pass's ``roi_max``
+      top-scored boxes, padded by ``roi_pad`` and clamped to
+      ``roi_bounds``, are cropped to ``roi_crop`` pixels (default: the
+      frame height) by the crop kernel and detected by the heavy model.
+      ``roi_bounds`` defaults to the frame's pixel size, as in the
+      reference; the built-in mini-SSD's boxes are normalized to
+      [0, 1], so its callers pass ``roi_bounds=(1.0, 1.0)``.  A
+      single-entry catalog never switches and never runs the ROI pass.
+    * ``post_process=`` installs a ``TickState -> TickState`` stage
+      after detect/NMS/ROI and before the responses and the tracker
+      (the state carries the batch's model).
 
-    The reference engine's cascade catalog, ROI pass, fault schedule,
-    fused tick and post-processor hook come with later slices.
+    The reference engine's fault schedule and fused tick come with later
+    slices.
     """
 
     def __init__(self, cfg=None, params=None, n_replicas: int = 4,
@@ -172,7 +195,11 @@ class DetectionEngine:
                  tracker_cfg=None, detect_fn=None,
                  service_time: Optional[float] = None,
                  timeout_k: float = 4.0, max_retries: int = 1,
-                 recorder=None, carry_tracks: bool = True, device=None):
+                 recorder=None, catalog=None, selector_kw=None,
+                 roi: bool = False, roi_bounds=None, roi_max: int = 4,
+                 roi_pad: float = 0.1, roi_crop: Optional[int] = None,
+                 post_process=None, carry_tracks: bool = True,
+                 device=None):
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}: "
                              "an empty replica pool can never serve")
@@ -211,17 +238,54 @@ class DetectionEngine:
         # observability: None -> the shared no-op recorder
         self.recorder = recorder if recorder is not None else NULL_RECORDER
         self.scheduler.recorder = self.recorder
+        # transprecise cascade: a missing or empty catalog normalizes to
+        # None and leaves every other path untouched.  The selector lives
+        # on the engine, so health probes never reset its hysteresis;
+        # each replica carries the catalog object.
+        from .models import as_catalog
+        self.catalog = as_catalog(catalog)
+        self.cascade = None
+        if self.catalog is not None:
+            from .cascade import ModelSelector
+            self.cascade = ModelSelector(self.catalog,
+                                         **(selector_kw or {}))
+        for r in self.replicas:
+            r.catalog = self.catalog
+        self.roi = bool(roi)
+        self.roi_bounds = (tuple(roi_bounds) if roi_bounds is not None
+                           else None)
+        self.roi_max = roi_max
+        self.roi_pad = roi_pad
+        self.roi_crop = roi_crop
+        self.post_process = post_process
         self.carry_tracks = bool(carry_tracks)
         self._exported_tracks: Dict[int, dict] = {}
+        # does a custom detect_fn accept the cascade's model= / rois=
+        # keywords?  A plain oracle keeps its exact 2-argument call.
+        self._fn_takes_model = self._fn_takes_rois = False
+        if detect_fn is not None:
+            try:
+                ps = inspect.signature(detect_fn).parameters
+                self._fn_takes_model = "model" in ps
+                self._fn_takes_rois = "rois" in ps
+            except (TypeError, ValueError):
+                pass
         self._warm = False
 
-    def _detect_batch(self, images: np.ndarray, rids=None):
+    def _detect_batch(self, images: np.ndarray, rids=None, model=None,
+                      rois=None):
         """One fused launch for a full micro-batch; returns numpy
         results + measured wall seconds.  The clock is read after the
-        device has finished."""
+        device has finished.  ``model``/``rois`` are the cascade hooks,
+        forwarded only to detect_fns that declare them."""
         t0 = time.perf_counter()
         if self._detect_fn is not None:
-            out = self._detect_fn(images, rids)
+            kw = {}
+            if model is not None and self._fn_takes_model:
+                kw["model"] = model
+            if rois is not None and self._fn_takes_rois:
+                kw["rois"] = rois
+            out = self._detect_fn(images, rids, **kw)
         else:
             out = self._infer(torch.from_numpy(
                 np.ascontiguousarray(images, np.float32)).to(self.device))
@@ -229,6 +293,32 @@ class DetectionEngine:
                 torch.cuda.synchronize(self.device)
             out = tuple(o.cpu().numpy() for o in out)
         return tuple(np.asarray(o) for o in out), time.perf_counter() - t0
+
+    def _model_caps(self) -> Dict[str, float]:
+        """Summed healthy-pool service rate (frames/s) per model name,
+        the feasibility signal of ``ModelSelector.decide``.  Each
+        healthy replica contributes from its own catalog."""
+        caps: Dict[str, float] = {}
+        for r, ok in zip(self.replicas, self.scheduler.healthy):
+            if not ok:
+                continue
+            cat = r.catalog if r.catalog is not None else self.catalog
+            if cat is None:
+                continue
+            for p in cat:
+                caps[p.name] = caps.get(p.name, 0.0) + p.mu / r.speed
+        return caps
+
+    def _apply_model(self, model: str, extra_s: float = 0.0):
+        """Pin each replica's service estimate to the selected model's
+        profile (plus the ROI second-pass surcharge ``extra_s``).
+        Profiles without ``service_s`` leave the measured-wall estimate
+        in charge."""
+        for r in self.replicas:
+            cat = r.catalog if r.catalog is not None else self.catalog
+            prof = cat.get(model) if cat is not None else None
+            if prof is not None and prof.service_s is not None:
+                r._last_wall = prof.service_s + extra_s
 
     def warmup(self):
         mb = self.max_micro_batch
@@ -297,7 +387,10 @@ class DetectionEngine:
         ``throughput_fps``, ``per_replica``, ``n_streams``, ``streams``,
         ``emit_t``, ``per_stream``, ``tracker_launches`` /
         ``tracker_ticks``, ``retries`` / ``failovers`` / ``frames_lost``,
-        the cascade block (empty) and the latency block
+        the cascade block (``models``, ``model_of_frame``,
+        ``model_map_est``, ``model_switches``, ``map_estimate``,
+        ``roi_pixels``, ``roi_pixel_reduction``; empty without a
+        catalog) and the latency block
         (``p50_latency``, ``p95_latency``, ``p99_latency``,
         ``latency_hist``, ``interp_latency``, ``latency_by_stream``,
         ``latency_by_replica``)."""

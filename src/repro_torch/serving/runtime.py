@@ -24,9 +24,12 @@ would have formed:
 * ``drain()`` / ``advance(float("inf"))`` seals everything, including
   the partial tail batch.
 
-The sharded cores, the cascade's ROI pass and the merge of several
-epoch reports into one (``drain`` / ``report(rolling=False)`` after an
-``epoch_boundary``) come with later slices.
+Each micro-batch runs: [cascade model selection] -> detect + NMS ->
+[ROI second pass] -> [post-processor hook] -> virtual-clock assignment;
+the tracker runs over the segment when it is finalized.  The sharded
+cores and the merge of several epoch reports into one (``drain`` /
+``report(rolling=False)`` after an ``epoch_boundary``) come with later
+slices.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from ..obs.trace import NULL_RECORDER
 from .engine import (DetectionEngine, DetectionResponse, FrameRequest,
                      _per_replica_counts)
 from .models import cascade_report_keys
+from .pipeline import TickState, roi_second_pass
 from .pipeline import sorted_chunk as _sorted_chunk
 
 _INF = float("inf")
@@ -80,6 +84,11 @@ class _DetectionCore:
         # floor appears in the segment report even with zero frames
         self._seg_warm = set(self._seq_next)
         self._fc0 = self.eng.scheduler.fault_counts()
+        # per-segment transprecise-cascade counters
+        self._model_counts: Dict[str, int] = {}
+        self._model_of: Dict[int, str] = {}
+        self._switches = 0
+        self._roi_px = {"full": 0.0, "roi": 0.0, "passes": 0}
 
     # ------------------------------------------------------------ ingest
     def ingest(self, frames):
@@ -129,6 +138,24 @@ class _DetectionCore:
         seq_of = self._seq_of
         chunk = frames[i:i + eng._chunk_size(frames, i)]
         self._qi += len(chunk)
+        model = None
+        if eng.cascade is not None:
+            # model selection at the batch boundary, the only point a
+            # switch may happen: a pure function of virtual-clock
+            # signals, so it replays bit-identically
+            t_sel = max(chunk[0].t_arrival,
+                        min(r.busy_until for r in eng.replicas))
+            model, switched = eng.cascade.decide(
+                t_sel, len(chunk), eng.scheduler.backlog(t_sel),
+                eng._model_caps())
+            if switched:
+                self._switches += 1
+                if rec.enabled:
+                    rec.record("model_switch", t_sel, batch=self._batch_no,
+                               model=model)
+            # pin service estimates before the drop-assign loop: drop
+            # decisions price frames at the selected model's rate
+            eng._apply_model(model)
         if rec.enabled:
             if self._batch_no % 4 == 0:
                 # queue depth + residual backlog sampled at the moment a
@@ -167,17 +194,50 @@ class _DetectionCore:
             pad = np.zeros((b - len(kept),) + images.shape[1:],
                            images.dtype)
             images = np.concatenate([images, pad], 0)
+        # no catalog => no `model=` kwarg
+        mkw = {} if model is None else {"model": model}
         (boxes, scores, classes, valid), wall = eng._detect_batch(
-            images, rids=[f.rid for f in kept] + [-1] * (b - len(kept)))
+            images, rids=[f.rid for f in kept] + [-1] * (b - len(kept)),
+            **mkw)
         if rec.enabled:
             rec.record("stage", chunk[0].t_arrival, stage="detect",
                        batch=bno, frames=len(kept))
             rec.sample("stage_ms_detect", chunk[0].t_arrival,
                        wall * 1e3)
+        # from here the batch travels as a TickState: [ROI second pass]
+        # -> post-processor hook
+        tick = TickState(boxes=boxes, scores=scores, classes=classes,
+                         valid=valid, images=images, model=model)
+        roi_frac = 0.0
+        if (model is not None and eng.roi
+                and model != eng.cascade.heaviest):
+            tick, roi_frac, roi_wall, px = roi_second_pass(
+                eng, tick, kept, b, rec)
+            self._roi_px["full"] += px["full"]
+            self._roi_px["roi"] += px["roi"]
+            self._roi_px["passes"] += px["passes"]
+            wall += roi_wall
+        if eng.post_process is not None:
+            tick = eng.post_process(tick)
+        boxes, scores, classes, valid = (tick.boxes, tick.scores,
+                                         tick.classes, tick.valid)
         per_frame = (wall / len(kept) if eng.service_time is None
                      else eng.service_time)
+        roi_cost = 0.0
+        if model is not None:
+            prof = eng.catalog.get(model)
+            if prof is not None and prof.service_s is not None:
+                # virtual cost: the selected model's pinned service plus
+                # the second pass priced at the pixel fraction it read
+                # of the heavy model's full-frame service
+                heavy_s = eng.catalog[eng.cascade.heaviest].service_s
+                roi_cost = roi_frac * (heavy_s or 0.0)
+                per_frame = prof.service_s + roi_cost
         for r in eng.replicas:
             r._last_wall = per_frame
+        if model is not None:
+            # re-pin from each replica's own catalog
+            eng._apply_model(model, roi_cost)
         if not eng.drop_when_busy:
             # blocking mode assigns after the measurement, so this
             # batch's own wall time drives its virtual-clock slots; with
@@ -202,6 +262,10 @@ class _DetectionCore:
                 f.rid, boxes[j], scores[j], classes[j], valid[j],
                 a.executor_idx, a.t_start, a.t_done, per_frame,
                 stream_id=f.stream_id, seq=seq_of[f.rid]))
+            if model is not None:
+                self._model_of[f.rid] = model
+                self._model_counts[model] = \
+                    self._model_counts.get(model, 0) + 1
 
     # ---------------------------------------------------------- finalize
     def _finalize_segment(self, *, record: bool = True) -> Dict:
@@ -280,11 +344,13 @@ class _DetectionCore:
             "retries": fault_counts["retries"],
             "failovers": fault_counts["failovers"],
             "frames_lost": fault_counts["frames_lost"],
-            # the cascade block, empty: the report schema matches the
-            # reference engine's key for key
-            **cascade_report_keys({}, {}, {}, 0,
-                                  {"full": 0.0, "roi": 0.0, "passes": 0},
-                                  len(frames)),
+            # the cascade block (all keys present, empty, without a
+            # catalog), derived from the segment's raw counters
+            **cascade_report_keys(
+                self._model_counts, self._model_of,
+                (eng.catalog.map_est_by_name()
+                 if eng.catalog is not None else {}),
+                self._switches, self._roi_px, len(frames)),
             **detection_latency_keys(
                 responses, {f.rid: f.t_arrival for f in frames}),
         }

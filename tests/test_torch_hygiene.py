@@ -107,7 +107,34 @@ def _assign_args(device):
             torch.zeros((2, 5, 4), device=device))
 
 
-@pytest.mark.parametrize("kernel", ["batched_nms", "greedy_assign"])
+def _crop_args(device):
+    return (torch.zeros((2, 16, 16, 3), device=device),
+            torch.zeros((2, 4, 4), device=device))
+
+
+def _uncrop_args(device):
+    return (torch.zeros((2, 4, 32, 4), device=device),
+            torch.zeros((2, 4, 1, 4), device=device))
+
+
+def _call(kernel, device):
+    """One call of ``ops.<kernel>`` on small tensors on ``device``."""
+    if kernel == "batched_nms":
+        return ops.batched_nms(*_nms_args(device), score_thr=0.4)
+    if kernel == "greedy_assign":
+        return ops.greedy_assign(*_assign_args(device))
+    if kernel == "crop_resize":
+        return ops.crop_resize(*_crop_args(device), out_size=8)
+    return ops.uncrop_boxes(*_uncrop_args(device), bounds=(1.0, 1.0),
+                            crop_size=64)
+
+
+KERNELS = ["batched_nms", "greedy_assign", "crop_resize", "uncrop_boxes"]
+PLAIN = ["batched_nms_torch", "greedy_assign_torch", "crop_resize_torch",
+         "uncrop_boxes_torch"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_wrappers_raise_when_library_missing(monkeypatch, kernel):
     """A non-CPU tensor goes to the kernel's wrapper and never to the
     plain version: with the library loader failing, the call raises and
@@ -119,15 +146,45 @@ def test_wrappers_raise_when_library_missing(monkeypatch, kernel):
         raise AssertionError("plain version called for a non-CPU tensor")
 
     monkeypatch.setattr(build, "function", missing)
-    monkeypatch.setattr(ops, "batched_nms_torch", plain)
-    monkeypatch.setattr(ops, "greedy_assign_torch", plain)
+    for name in PLAIN:
+        monkeypatch.setattr(ops, name, plain)
     before = ops.launches()
     with pytest.raises(build.KernelBuildError):
-        if kernel == "batched_nms":
-            ops.batched_nms(*_nms_args("meta"), score_thr=0.4)
-        else:
-            ops.greedy_assign(*_assign_args("meta"))
+        _call(kernel, "meta")
     assert ops.launches() == before
+
+
+@pytest.mark.parametrize("kernel", ["crop_resize", "uncrop_boxes"])
+def test_roi_wrappers_refuse_non_cuda_tensors(monkeypatch, kernel):
+    """With the library loaded, a tensor that is neither on the CPU nor
+    on a CUDA device (meta) reaches the CUDA wrapper, which raises
+    before launching: no launch, no plain version, no count."""
+    launched = []
+
+    def loader(*a, **k):
+        return lambda *args: launched.append(args) or 0
+
+    def plain(*a, **k):
+        raise AssertionError("plain version called for a meta tensor")
+
+    monkeypatch.setattr(build, "function", loader)
+    for name in PLAIN:
+        monkeypatch.setattr(ops, name, plain)
+    before = ops.launches()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _call(kernel, "meta")
+    assert not launched and ops.launches() == before
+
+
+def test_reset_launches_zeroes_every_counter(monkeypatch):
+    from repro_torch.kernels import association, nms, roi
+    for mod, attr in ((nms, "LAUNCHES"), (association, "LAUNCHES"),
+                      (roi, "CROP_LAUNCHES"), (roi, "UNCROP_LAUNCHES")):
+        monkeypatch.setattr(mod, attr, 7)
+    assert set(ops.launches()) == set(KERNELS)
+    assert set(ops.launches().values()) == {7}
+    ops.reset_launches()
+    assert ops.launches() == {k: 0 for k in KERNELS}
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -149,8 +206,11 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     before = ops.launches()
     keep, valid = ops.batched_nms(*_nms_args("cpu"))
     match = ops.greedy_assign(*_assign_args("cpu"))
+    crops = _call("crop_resize", "cpu")
+    boxes = _call("uncrop_boxes", "cpu")
     assert keep.shape == (2, 64) and valid.shape == (2, 64)
     assert match.shape == (2, 6)
+    assert crops.shape == (2, 4, 8, 8, 3) and boxes.shape == (2, 4, 32, 4)
     assert ops.launches() == before
 
 
@@ -162,4 +222,5 @@ def test_library_names_track_source_and_flags():
     assert any("sm_90a" in f for f in build.NVCC_FLAGS)
     assert (build.CSRC / "nms.cu").is_file()
     assert (build.CSRC / "association.cu").is_file()
+    assert "roi" in build.SOURCES and (build.CSRC / "roi.cu").is_file()
     assert all((build.CSRC / f"{n}.cu").is_file() for n in build.SOURCES)

@@ -24,10 +24,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    serve; the report must equal the same serve on ``device="cpu"``;
 5. check the served paths against the CPU on the oracle detectors
    (NVR and cascade) and on a short mini-SSD NVR trace: the same
-   schedule, detections and track ids.
+   schedule, detections and track ids;
+6. the seed NMS path: ``ops.nms_serial`` (IoU matrix kernel + A-step
+   greedy loop) and ``ops.nms`` (batched NMS kernel at B=1) on each of
+   8 frames of mini-SSD candidates (A=160), counted from zero; both
+   must equal ``ops.batched_nms`` over the 8 frames and the same calls
+   on ``device="cpu"`` exactly, and the IoU kernel must equal its plain
+   version exactly at 160x160, 256x256, 300x17, 1x1 and SSD300's
+   8732x8732 anchors;
+7. the attention and scan kernels at the widths of models the repo
+   supports, counted from zero: ``ops.flash_attention`` at qwen3-4b
+   (H=32, D=128; T=S=2048 causal in bf16 and f32, a cached prefix
+   T=128 S=2048 in bf16, non-causal T=256 S=128 in f32),
+   ``ops.decode_attention`` at qwen3-4b (B=4, H=32, KV=8, S=32768,
+   bf16) and in f32 MQA (2,8,1,512,128) and MHA (2,16,16,1024,64),
+   ``ops.rwkv_scan`` at rwkv6-3b (B=4, H=40, hs=64, T=2048, bf16 and
+   f32) and at T=100, hs=32; each output within the reference's
+   kernel tolerances of the plain version on the same inputs (rtol =
+   atol = 2e-5 in f32, 2e-2 in bf16, five times that for the RWKV
+   state).
 
 ``--profile`` adds one more serve of each path under ``torch.profiler``
 and prints the device time by kernel and the device's busy share.
+
+Each kernel is timed with CUDA events (its wrapper and, where the
+wrapper does more than launch, the kernel alone), beside its plain
+version, the least time the card could take for the same work (bytes
+at 3.35 TB/s; operations at 67 TFLOP/s for float32 inputs and at the
+989 TFLOP/s dense bf16 tensor-core rate for bfloat16 inputs) and, where
+one PyTorch call computes the same function, that call's time (SDPA for
+the two attention kernels; used for comparison only).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 card's name and power limit are printed before it; the last line is
@@ -54,15 +80,20 @@ from repro_torch.detector import (SSDConfig, init_ssd, make_anchors,  # noqa: E4
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.obs import TraceRecorder  # noqa: E402
 from repro_torch.kernels import association as kassoc  # noqa: E402
+from repro_torch.kernels import decode_attention as kdecode  # noqa: E402
+from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import iou as kiou  # noqa: E402
 from repro_torch.kernels import nms as knms  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import roi as kroi  # noqa: E402
+from repro_torch.kernels import rwkv_scan as krwkv  # noqa: E402
 from repro_torch.serving import (DetectionEngine, FrameRequest,  # noqa: E402
                                  make_cascade_detect_fn, make_nvr_streams,
                                  paper_catalog)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
 SEED = 0
 DEV = "cuda"
 # the engine's shapes on the serving path
@@ -80,6 +111,37 @@ ROI_BOUNDS = (1.0, 1.0)         # the mini-SSD's boxes are normalized
 CROP_INDEX_FLOPS = 9            # add, div, sub, mul, add, mul, floor, 2 clamp
 UNCROP_FLOPS = 18               # 2 sub + 4 x (div, mul, add, mul)
 FORWARD_ATOL = 1e-4             # cuDNN vs CPU conv sums; Kalman ULPs
+IOU_PAIR_FLOPS = 13             # 4 min/max, 2 sub, 2 clamp, mul, add, sub,
+                                # max, div (+ 3 a box for its area)
+SSD300_ANCHORS = 8732           # SSD300's default boxes (the SSD paper);
+                                # ssd300 is a core/executor.py MODEL_PROFILES entry
+IOU_SIZES = ((160, 160), (256, 256), (300, 17), (1, 1),
+             (SSD300_ANCHORS, SSD300_ANCHORS))
+# (name, B, H, T, S, D, causal, dtype): qwen3-4b's 32 heads of 128
+# (src/repro/configs/qwen3_4b.py); the first is the timed shape
+FLASH_CASES = (
+    ("qwen3-4b prefill T=S=2048 causal bf16", 1, 32, 2048, 2048, 128, True,
+     torch.bfloat16),
+    ("qwen3-4b prefill T=S=2048 causal f32", 1, 32, 2048, 2048, 128, True,
+     torch.float32),
+    ("qwen3-4b cached prefix T=128 S=2048 bf16", 1, 32, 128, 2048, 128,
+     True, torch.bfloat16),
+    ("non-causal T=256 S=128 f32", 1, 32, 256, 128, 128, False,
+     torch.float32))
+# (name, B, H, KV, S, D, dtype): qwen3-4b's GQA (32 query heads on 8 kv
+# heads of 128) against a 32k cache, then MQA and MHA
+DECODE_CASES = (
+    ("qwen3-4b decode S=32768 bf16", 4, 32, 8, 32768, 128, torch.bfloat16),
+    ("MQA (2,8,1,512,128) f32", 2, 8, 1, 512, 128, torch.float32),
+    ("MHA (2,16,16,1024,64) f32", 2, 16, 16, 1024, 64, torch.float32))
+# (name, B, H, T, hs, dtype): rwkv6-3b's 40 heads of 64
+# (src/repro/configs/rwkv6_3b.py)
+RWKV_CASES = (
+    ("rwkv6-3b T=2048 bf16", 4, 40, 2048, 64, torch.bfloat16),
+    ("rwkv6-3b T=2048 f32", 4, 40, 2048, 64, torch.float32),
+    ("T=100 hs=32 f32", 2, 8, 100, 32, torch.float32))
+# the reference's kernel-vs-oracle tolerances (tests/test_kernels.py)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -326,6 +388,52 @@ def uncrop_bound_ms(boxes, rois):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _bound(nbytes, ops_, peak):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def iou_bound_ms(N, M):
+    """Bytes: both box sets read once and the (N, M) float32 matrix
+    written once; operations: 13 a pair and 3 a box (its area)."""
+    return _bound(16 * (N + M) + 4 * N * M,
+                  IOU_PAIR_FLOPS * N * M + 3 * (N + M), FP32_OPS_PER_S)
+
+
+def _peak(dtype):
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+
+
+def flash_bound_ms(B, H, T, S, D, causal, dtype):
+    """Bytes: q, k, v read once and the output written once; operations:
+    2 D for q.k and 2 D for p.v on every (query, seen key) pair (the
+    causal mask's pairs only), at the peak rate of the inputs' type."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    t = np.arange(T)
+    seen = np.clip(t + (S - T) + 1, 0, S).sum() if causal else T * S
+    return _bound(esize * B * H * (2 * T * D + 2 * S * D),
+                  4 * D * B * H * int(seen), _peak(dtype))
+
+
+def decode_bound_ms(B, H, KV, S, D, dtype):
+    """Bytes: q, the K and V caches read once and the output written
+    once; operations: 4 D a (query head, cache row) pair."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    return _bound(esize * (2 * B * H * D + 2 * B * S * KV * D),
+                  4 * D * B * H * S, _peak(dtype))
+
+
+def rwkv_bound_ms(B, H, T, hs, dtype):
+    """Bytes: r, k, v, w read and out written once in the inputs' type,
+    u, s0 and the final state in float32; operations: 7 a state element
+    a step (k v, u kv, S +, r x, sum, w S, + kv)."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    return _bound(esize * 5 * B * H * T * hs + 4 * (H * hs +
+                                                   2 * B * H * hs * hs),
+                  7 * B * H * T * hs * hs, _peak(dtype))
+
+
 # ------------------------------------------------------------- phases
 def phase_build():
     t0 = time.perf_counter()
@@ -337,7 +445,8 @@ def phase_build():
         log = build.BUILD_DIR / f"{name}.log"
         if log.is_file():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Function properties" in line):
                     print(f"[build] {name}: {line.strip()}")
 
 
@@ -346,13 +455,22 @@ def check_counters(b, s, assign_args, crop_args, uncrop_args):
     nothing where it launches none (an empty batch)."""
     imgs, rois, C = crop_args
     boxes, brois, bounds, bC = uncrop_args
+    x = torch.ones((2, 2, 128, 32), device=DEV)
+    cache = torch.ones((2, 64, 2, 32), device=DEV)
+    seq = torch.full((2, 2, 16, 8), 0.5, device=DEV)
+    u, s0 = torch.ones((2, 8), device=DEV), torch.zeros((2, 2, 8, 8),
+                                                         device=DEV)
     calls = lambda k: (  # noqa: E731
         knms.batched_nms_cuda(b[:k], s[:k], **NMS_KW),
         kassoc.greedy_assign_cuda(*(a[:k] for a in assign_args),
                                   iou_thr=ASSIGN_THR),
         kroi.crop_resize_cuda(imgs[:k], rois[:k], out_size=C),
         kroi.uncrop_boxes_cuda(boxes[:k], brois[:k], bounds=bounds,
-                               crop_size=bC))
+                               crop_size=bC),
+        kiou.iou_matrix_cuda(b[0, :k], b[1]),
+        kflash.flash_attention_cuda(x[:k], x[:k], x[:k]),
+        kdecode.decode_attention_cuda(x[:k, :, 0], cache[:k], cache[:k]),
+        krwkv.rwkv_scan_cuda(*(seq[:k],) * 4, u, s0[:k]))
     ops.reset_launches()
     calls(0)
     check(set(ops.launches().values()) == {0},
@@ -781,6 +899,294 @@ def phase_parity(params, cfg):
           f"{len(reps[0]['responses'])} responses, {n_det} detections")
 
 
+def _close(got, want, tol):
+    """Max |got - want| in float32, and whether it is within the
+    reference's ``assert_allclose(rtol=tol, atol=tol)``."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    return err, bool(torch.allclose(g, w, rtol=tol, atol=tol))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+
+
+def phase_seed_nms(params, cfg, anchors, frames):
+    """The seed's per-image NMS path on the card: ``ops.nms_serial`` and
+    ``ops.nms`` on each of 8 frames of mini-SSD candidates, counted from
+    zero; both equal to the fused ``ops.batched_nms`` over the 8 frames
+    and to the CPU; the IoU kernel exact against its plain version."""
+    imgs = torch.from_numpy(np.stack([f.image for f in frames[:8]])).to(DEV)
+    b, s, _ = ssd_candidates(params, cfg, imgs, anchors)
+    b, s = b.contiguous(), s.contiguous()
+    kw = dict(iou_thr=NMS_KW["iou_thr"], max_out=NMS_KW["max_out"])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    serial = [ops.nms_serial(b[f], s[f], **kw) for f in range(8)]
+    single = [ops.nms(b[f], s[f], **kw) for f in range(8)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    print(f"[seed-nms] 8 frames A={b.shape[1]}: nms_serial + nms per frame "
+          f"in {wall * 1e3:.2f} ms host wall; launches {launches}")
+    check(launches["iou_matrix"] == 8 and launches["batched_nms"] == 8,
+          f"seed NMS path: expected 8 IoU and 8 NMS launches: {launches}")
+    check(all(n == 0 for k, n in launches.items()
+              if k not in ("iou_matrix", "batched_nms")),
+          f"seed NMS path launched other kernels: {launches}")
+    kb, vb = ops.batched_nms(b, s, **kw)
+    for f in range(8):
+        kc, vc = ops.nms_serial(b[f].cpu(), s[f].cpu(), **kw)
+        for name, (k, v) in (("nms_serial", serial[f]), ("nms", single[f])):
+            check(torch.equal(k, kb[f]) and torch.equal(v, vb[f]),
+                  f"{name} != batched_nms on frame {f}")
+            check(torch.equal(k.cpu(), kc) and torch.equal(v.cpu(), vc),
+                  f"{name} on cuda != nms_serial on cpu, frame {f}")
+    print(f"[seed-nms] nms_serial == nms == batched_nms (no score_thr) == "
+          f"cpu on all 8 frames; valid {[int(v.sum()) for _, v in serial]}")
+    t_serial = cuda_ms(lambda: [ops.nms_serial(b[f], s[f], **kw)
+                                for f in range(8)], iters=3, warmup=1)
+    t_fused = cuda_ms(lambda: ops.batched_nms(b, s, **kw), iters=50,
+                      warmup=5)
+    print(f"[seed-nms] 8 frames: nms_serial {t_serial:.3f} ms, "
+          f"batched_nms {t_fused:.4f} ms")
+
+    rng = np.random.default_rng(SEED + 6)
+    worst = 0.0
+    for N, M in IOU_SIZES:
+        if (N, M) == (160, 160):
+            a, c = b[0], b[1]
+        else:
+            a = _t(random_boxes(rng, (N,)))
+            c = _t(random_boxes(rng, (M,)))
+        got = kiou.iou_matrix_cuda(a, c)
+        want = kiou.iou_matrix_torch(a, c)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        print(f"[iou] {N}x{M}: equal={bool(torch.equal(got, want))} "
+              f"max |err| {err}")
+        check(torch.equal(got, want), f"iou_matrix kernel != plain {N}x{M}")
+        worst = max(worst, err)
+    a, c = b[0], b[1]
+    out = torch.empty((160, 160), dtype=torch.float32, device=DEV)
+    launch = build.function("iou", "iou_matrix_launch", kiou._LAUNCH_ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = cuda_ms(lambda: kiou.iou_matrix_cuda(a, c))
+    kernel_ms = cuda_ms(lambda: launch(a.data_ptr(), c.data_ptr(), 160, 160,
+                                       out.data_ptr(), stream))
+    plain_ms = cuda_ms(lambda: kiou.iou_matrix_torch(a, c), iters=50,
+                       warmup=5)
+    bound, by = iou_bound_ms(160, 160)
+    print(f"[iou] 160x160: wrapper {ms:.4f} ms (kernel alone "
+          f"{kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.2e} ms ({by}); library: none (no PyTorch call computes "
+          f"pairwise IoU)")
+    N = SSD300_ANCHORS
+    big = _t(random_boxes(rng, (N,)))
+    t_k = cuda_ms(lambda: kiou.iou_matrix_cuda(big, big), iters=20,
+                  warmup=3)
+    t_p = cuda_ms(lambda: kiou.iou_matrix_torch(big, big), iters=5,
+                  warmup=1)
+    print(f"[iou-sweep] {N}x{N}: wrapper {t_k:.4f} ms, plain {t_p:.4f} ms, "
+          f"bound {iou_bound_ms(N, N)[0]:.4f} ms ({iou_bound_ms(N, N)[1]})")
+    entry = dict(
+        name="iou_matrix", route="cuda",
+        source="src/repro_torch/kernels/csrc/iou.cu",
+        replaces="src/repro/kernels/iou.py:42",
+        max_abs_err=worst, ms=ms, kernel_only_ms=kernel_ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        shape="160x160 (one frame's candidates)",
+        ssd300_ms=t_k, ssd300_plain_ms=t_p,
+        ssd300_bound_ms=iou_bound_ms(N, N)[0])
+    return launches, entry
+
+
+def _randn(g, shape, dtype=torch.float32):
+    return torch.randn(shape, generator=g, device=DEV).to(dtype)
+
+
+def _sdpa_causal(T, S):
+    from torch.nn.attention.bias import causal_lower_right
+    return causal_lower_right(T, S)
+
+
+def phase_attention():
+    """The attention and scan kernels at model widths: every case through
+    ``ops`` with the counters zeroed first, then each output against the
+    plain version on the same inputs, then times at the first case."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    flash_in = [(c, tuple(_randn(g, (B, H, n, D), c[-1])
+                          for n in (T, S, S)))
+                for c in FLASH_CASES for B, H, T, S, D in [c[1:6]]]
+    decode_in = [(c, (_randn(g, (B, H, D), c[-1]),
+                      _randn(g, (B, S, KV, D), c[-1]),
+                      _randn(g, (B, S, KV, D), c[-1])))
+                 for c in DECODE_CASES for B, H, KV, S, D in [c[1:6]]]
+    rwkv_in = []
+    for c in RWKV_CASES:
+        _, B, H, T, hs, dt = c
+        r, k, v = (_randn(g, (B, H, T, hs), dt) for _ in range(3))
+        w = (torch.sigmoid(_randn(g, (B, H, T, hs))) * 0.5 + 0.45).to(dt)
+        rwkv_in.append((c, (r, k, v, w, _randn(g, (H, hs)),
+                            _randn(g, (B, H, hs, hs)) * 0.1)))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    flash_out = [ops.flash_attention(*x, causal=c[6]) for c, x in flash_in]
+    decode_out = [ops.decode_attention(*x) for _, x in decode_in]
+    rwkv_out = [ops.rwkv_scan(*x) for _, x in rwkv_in]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    print(f"[attention] {len(flash_in)} flash, {len(decode_in)} decode, "
+          f"{len(rwkv_in)} rwkv calls in {wall * 1e3:.1f} ms host wall; "
+          f"launches {launches}")
+    check(launches["flash_attention"] == len(flash_in)
+          and launches["decode_attention"] == len(decode_in)
+          and launches["rwkv_scan"] == len(rwkv_in),
+          f"attention path: one launch a call expected: {launches}")
+    check(all(launches[k] == 0 for k in ("batched_nms", "greedy_assign",
+                                         "crop_resize", "uncrop_boxes",
+                                         "iou_matrix")),
+          f"attention path launched other kernels: {launches}")
+
+    worst = {"flash": 0.0, "decode": 0.0, "rwkv": 0.0}
+    for (c, x), got in zip(flash_in, flash_out):
+        want = kflash.flash_attention_torch(*x, causal=c[6])
+        check(got.shape == want.shape and got.dtype == x[0].dtype
+              and bool(torch.isfinite(got.float()).all()),
+              f"flash {c[0]}: shape/dtype/finite")
+        err, ok = _close(got, want, ATTN_TOL[c[-1]])
+        print(f"[flash] {c[0]}: max |err| {err:.3e} within "
+              f"{ATTN_TOL[c[-1]]}={ok}")
+        check(ok, f"flash_attention kernel != plain version on {c[0]}")
+        worst["flash"] = max(worst["flash"], err)
+    for (c, x), got in zip(decode_in, decode_out):
+        want = kdecode.decode_attention_torch(*x)
+        check(got.shape == want.shape and got.dtype == x[0].dtype
+              and bool(torch.isfinite(got.float()).all()),
+              f"decode {c[0]}: shape/dtype/finite")
+        err, ok = _close(got, want, ATTN_TOL[c[-1]])
+        print(f"[decode] {c[0]}: max |err| {err:.3e} within "
+              f"{ATTN_TOL[c[-1]]}={ok}")
+        check(ok, f"decode_attention kernel != plain version on {c[0]}")
+        worst["decode"] = max(worst["decode"], err)
+    for (c, x), (got_o, got_s) in zip(rwkv_in, rwkv_out):
+        want_o, want_s = krwkv.rwkv_scan_torch(*x)
+        tol = ATTN_TOL[c[-1]]
+        err_o, ok_o = _close(got_o, want_o, tol)
+        err_s, ok_s = _close(got_s, want_s, 5 * tol)
+        check(got_o.dtype == x[0].dtype and got_s.dtype == torch.float32
+              and bool(torch.isfinite(got_o.float()).all())
+              and bool(torch.isfinite(got_s).all()),
+              f"rwkv {c[0]}: dtype/finite")
+        print(f"[rwkv] {c[0]}: out max |err| {err_o:.3e} within {tol}="
+              f"{ok_o}; state max |err| {err_s:.3e} within {5 * tol}={ok_s}")
+        check(ok_o and ok_s, f"rwkv_scan kernel != plain version on {c[0]}")
+        worst["rwkv"] = max(worst["rwkv"], err_o, err_s)
+
+    import torch.nn.functional as F
+    stream = torch.cuda.current_stream().cuda_stream
+    entries = {}
+    for i, (c, x) in enumerate(flash_in):
+        name, B, H, T, S, D, causal, dt = c
+        q, k, v = x
+        ms = cuda_ms(lambda: kflash.flash_attention_cuda(q, k, v,
+                                                         causal=causal),
+                     iters=20, warmup=3)
+        plain_ms = cuda_ms(lambda: kflash.flash_attention_torch(
+            q, k, v, causal=causal), iters=5, warmup=1)
+        mask = _sdpa_causal(T, S) if causal else None
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask)
+        lib_err = _close(lib(), flash_out[i], ATTN_TOL[dt])[0]
+        lib_ms = cuda_ms(lib, iters=20, warmup=3)
+        bound, by = flash_bound_ms(B, H, T, S, D, causal, dt)
+        print(f"[flash] {name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+              f" SDPA {lib_ms:.4f} ms (|SDPA - kernel| {lib_err:.2e}), "
+              f"bound {bound:.4f} ms ({by})")
+        if i == 0:
+            out = torch.empty_like(q)
+            launch = build.function("flash_attention",
+                                    "flash_attention_launch",
+                                    kflash._LAUNCH_ARGS)
+            kernel_ms = cuda_ms(lambda: launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), B, H, T, S, D,
+                D ** -0.5, int(causal), kflash._DTYPES[dt], out.data_ptr(),
+                stream), iters=20, warmup=3)
+            print(f"[flash] {name}: kernel alone {kernel_ms:.4f} ms")
+            entries["flash_attention"] = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:71",
+                max_abs_err=worst["flash"], ms=ms, kernel_only_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, shape=name)
+    for i, (c, x) in enumerate(decode_in):
+        name, B, H, KV, S, D, dt = c
+        q, k, v = x
+        ms = cuda_ms(lambda: kdecode.decode_attention_cuda(q, k, v),
+                     iters=20, warmup=3)
+        plain_ms = cuda_ms(lambda: kdecode.decode_attention_torch(q, k, v),
+                           iters=10, warmup=2)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)    # (B, KV, S, D)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[:, :, None], kt, vt, enable_gqa=True)[:, :, 0]
+        lib_err = _close(lib(), decode_out[i], ATTN_TOL[dt])[0]
+        lib_ms = cuda_ms(lib, iters=20, warmup=3)
+        bound, by = decode_bound_ms(B, H, KV, S, D, dt)
+        print(f"[decode] {name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, SDPA(enable_gqa) {lib_ms:.4f} ms (|SDPA - kernel| "
+              f"{lib_err:.2e}), bound {bound:.4f} ms ({by})")
+        if i == 0:
+            out = torch.empty_like(q)
+            launch = build.function("decode_attention",
+                                    "decode_attention_launch",
+                                    kdecode._LAUNCH_ARGS)
+            kernel_ms = cuda_ms(lambda: launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), B, H, KV, S, D,
+                D ** -0.5, kdecode._DTYPES[dt], out.data_ptr(), stream),
+                iters=20, warmup=3)
+            print(f"[decode] {name}: kernel alone {kernel_ms:.4f} ms")
+            entries["decode_attention"] = dict(
+                name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:54",
+                max_abs_err=worst["decode"], ms=ms,
+                kernel_only_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, shape=name)
+    for i, (c, x) in enumerate(rwkv_in):
+        name, B, H, T, hs, dt = c
+        ms = cuda_ms(lambda: krwkv.rwkv_scan_cuda(*x), iters=20, warmup=3)
+        plain_ms = cuda_ms(lambda: krwkv.rwkv_scan_torch(*x), iters=2,
+                           warmup=1)
+        bound, by = rwkv_bound_ms(B, H, T, hs, dt)
+        print(f"[rwkv] {name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+              f" bound {bound:.4f} ms ({by}); library: none (no PyTorch "
+              f"call computes the RWKV-6 recurrence)")
+        if i == 0:
+            r, k, v, w, u, s0 = x
+            out = torch.empty_like(r)
+            sf = torch.empty_like(s0)
+            launch = build.function("rwkv_scan", "rwkv_scan_launch",
+                                    krwkv._LAUNCH_ARGS)
+            kernel_ms = cuda_ms(lambda: launch(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), s0.data_ptr(), B, H, T, hs,
+                krwkv._DTYPES[dt], out.data_ptr(), sf.data_ptr(), stream),
+                iters=20, warmup=3)
+            print(f"[rwkv] {name}: kernel alone {kernel_ms:.4f} ms")
+            entries["rwkv_scan"] = dict(
+                name="rwkv_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/rwkv_scan.cu",
+                replaces="src/repro/kernels/rwkv_scan.py:57",
+                max_abs_err=worst["rwkv"], ms=ms, kernel_only_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None, shape=name)
+    return launches, entries
+
+
 def gpu_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -815,10 +1221,16 @@ def main() -> int:
     entries = phase_kernels(params, cfg, anchors, frames)
     by_path = {"nvr": phase_serve(params, cfg, frames),
                "cascade": phase_cascade(params, cfg, frames)}
+    phase_parity(params, cfg)
+    by_path["seed_nms"], entries["iou_matrix"] = phase_seed_nms(
+        params, cfg, anchors, frames)
+    by_path["attention"], attn_entries = phase_attention()
+    entries.update(attn_entries)
     for k, e in entries.items():
         e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
-    phase_parity(params, cfg)
+        check(e["launches"] > 0, f"{k} was never launched on a main path")
+    check(len(entries) == 8, f"kernels line has {len(entries)} entries")
     if "--profile" in sys.argv[1:]:
         phase_profile("nvr", DetectionEngine(
             cfg=cfg, params=params, n_replicas=2, service_time=SERVICE_S,

@@ -5,14 +5,18 @@ Each ``csrc/<name>.cu`` exports a plain C launcher.  It is compiled by
 ``build/kernels/`` directory and loaded with ``ctypes``; no PyTorch
 header is compiled, so a build takes seconds.  All sources are compiled
 together (one ``nvcc`` process each, started at once) the first time any
-kernel is needed.  A library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and a stale one never loads.
+kernel is needed.  A library's file name carries a hash of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+is rebuilt and a stale one never loads.
 
 ``-fmad=false`` is part of the contract, not a tuning flag: without it
 nvcc contracts ``area + area - inter`` and ``(x1 - x0) * (y1 - y0) + a``
 into fused multiply-adds, and an IoU compared against a threshold then
 flips on one ULP relative to the reference.  Division stays IEEE (no
-``--use_fast_math``).
+``--use_fast_math``).  The flag is global, so the attention and scan
+kernels pay for it too (a separate multiply and add where one FMA
+would do); they need no bit-exactness and could drop it in their own
+build.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("nms", "association", "roi")
+SOURCES = ("nms", "association", "roi", "iou", "flash_attention",
+           "decode_attention", "rwkv_scan")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
@@ -54,7 +59,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where source ``name``'s library goes: the name carries a hash of
+    the source, of every shared header in ``csrc/`` and of the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:12]}.so"
 

@@ -1,13 +1,44 @@
-"""Plain-loop oracles for the kernels on the serving path: the PyTorch
-counterparts of the reference package's ``kernels/ref.py`` NMS and
-association oracles, and copies of its numpy ROI crop / uncrop oracles
+"""Plain oracles for the port's kernels: the PyTorch counterparts of the
+reference package's ``kernels/ref.py`` attention, IoU, NMS, association
+and RWKV-scan oracles, and copies of its numpy ROI crop / uncrop oracles
 (float32 index math, returning tensors).  Slow and obvious on purpose;
-the tests hold the batched plain versions and the CUDA kernels against
-them."""
+the tests hold the plain versions and the CUDA kernels against them."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        scale: float | None = None):
+    """q:(B,H,T,D) k/v:(B,H,S,D) -> (B,H,T,D)  (full softmax attention).
+
+    As in the reference, p is cast to q's dtype before PV, and a causal
+    query that sees no key (S < T) gets the mean of v."""
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    s = torch.einsum("bhtd,bhsd->bhts", q, k).float() * scale
+    if causal:
+        mask = (torch.arange(S, device=q.device)[None, :] <=
+                torch.arange(T, device=q.device)[:, None] + (S - T))
+        s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bhsd->bhtd", p.to(q.dtype), v)
+
+
+def decode_attention_ref(q, k, v, *, scale: float | None = None):
+    """GQA flash-decode oracle.
+    q:(B,H,D) one token; k/v:(B,S,KV,D) full cache -> (B,H,D)."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, D)
+    scale = D ** -0.5 if scale is None else scale
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k).float() * scale
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype), v)
+    return out.reshape(B, H, D)
 
 
 def iou_matrix_ref(a, b):
@@ -128,3 +159,20 @@ def uncrop_boxes_ref(boxes, rois, *, bounds, crop_size: int):
         (r[..., 1] + b[..., 3] / C * (r[..., 3] - r[..., 1])) * H,
     ], axis=-1)
     return torch.from_numpy(np.ascontiguousarray(out))
+
+
+def rwkv_scan_ref(r, k, v, w, u, s0):
+    """Stepwise oracle for the RWKV-6 recurrence kernel.
+    r/k/v/w: (B,H,T,hs); u: (H,hs); s0: (B,H,hs,hs).  kv is formed in
+    the inputs' dtype and promoted against the float32 state, as in the
+    reference."""
+    S = s0.float()
+    outs = []
+    for t in range(r.shape[2]):
+        r_t, k_t, v_t, w_t = (x[:, :, t] for x in (r, k, v, w))
+        kv = k_t[..., :, None] * v_t[..., None, :]
+        inner = S + u[None, :, :, None] * kv
+        outs.append(torch.einsum("bhk,bhkv->bhv", r_t.to(inner.dtype),
+                                 inner))
+        S = w_t[..., :, None] * S + kv
+    return torch.stack(outs, 2).to(r.dtype), S

@@ -38,7 +38,10 @@ def test_serving_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.serving, repro_torch.kernels.ops, "
-            "repro_torch.detector, repro_torch.tracking; "
+            "repro_torch.detector, repro_torch.tracking, "
+            "repro_torch.kernels.iou, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.decode_attention, "
+            "repro_torch.kernels.rwkv_scan, repro_torch.kernels.ref; "
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -117,8 +120,42 @@ def _uncrop_args(device):
             torch.zeros((2, 4, 1, 4), device=device))
 
 
+def _iou_args(device):
+    return (torch.zeros((5, 4), device=device),
+            torch.zeros((3, 4), device=device))
+
+
+def _flash_args(device):
+    return tuple(torch.zeros((1, 2, 128, 32), device=device)
+                 for _ in range(3))
+
+
+def _decode_args(device):
+    return (torch.zeros((2, 4, 32), device=device),
+            torch.zeros((2, 64, 2, 32), device=device),
+            torch.zeros((2, 64, 2, 32), device=device))
+
+
+def _rwkv_args(device):
+    x = torch.zeros((1, 2, 16, 8), device=device)
+    return (x, x, x, x, torch.zeros((2, 8), device=device),
+            torch.zeros((1, 2, 8, 8), device=device))
+
+
+NEW_CALLS = {"iou_matrix": (_iou_args, {}),
+             "flash_attention": (_flash_args, {}),
+             "decode_attention": (_decode_args, {}),
+             "rwkv_scan": (_rwkv_args, {}),
+             "nms_serial": (lambda d: (torch.zeros((6, 4), device=d),
+                                       torch.zeros((6,), device=d)),
+                            {"max_out": 4})}
+
+
 def _call(kernel, device):
     """One call of ``ops.<kernel>`` on small tensors on ``device``."""
+    if kernel in NEW_CALLS:
+        make, kw = NEW_CALLS[kernel]
+        return getattr(ops, kernel)(*make(device), **kw)
     if kernel == "batched_nms":
         return ops.batched_nms(*_nms_args(device), score_thr=0.4)
     if kernel == "greedy_assign":
@@ -129,12 +166,14 @@ def _call(kernel, device):
                             crop_size=64)
 
 
-KERNELS = ["batched_nms", "greedy_assign", "crop_resize", "uncrop_boxes"]
+KERNELS = ["batched_nms", "greedy_assign", "crop_resize", "uncrop_boxes",
+           "iou_matrix", "flash_attention", "decode_attention", "rwkv_scan"]
 PLAIN = ["batched_nms_torch", "greedy_assign_torch", "crop_resize_torch",
-         "uncrop_boxes_torch"]
+         "uncrop_boxes_torch", "iou_matrix_torch", "flash_attention_torch",
+         "decode_attention_torch", "rwkv_scan_torch"]
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", KERNELS + ["nms_serial"])
 def test_wrappers_raise_when_library_missing(monkeypatch, kernel):
     """A non-CPU tensor goes to the kernel's wrapper and never to the
     plain version: with the library loader failing, the call raises and
@@ -177,9 +216,14 @@ def test_roi_wrappers_refuse_non_cuda_tensors(monkeypatch, kernel):
 
 
 def test_reset_launches_zeroes_every_counter(monkeypatch):
-    from repro_torch.kernels import association, nms, roi
+    from repro_torch.kernels import (association, decode_attention,
+                                     flash_attention, iou, nms, roi,
+                                     rwkv_scan)
     for mod, attr in ((nms, "LAUNCHES"), (association, "LAUNCHES"),
-                      (roi, "CROP_LAUNCHES"), (roi, "UNCROP_LAUNCHES")):
+                      (roi, "CROP_LAUNCHES"), (roi, "UNCROP_LAUNCHES"),
+                      (iou, "LAUNCHES"), (flash_attention, "LAUNCHES"),
+                      (decode_attention, "LAUNCHES"),
+                      (rwkv_scan, "LAUNCHES")):
         monkeypatch.setattr(mod, attr, 7)
     assert set(ops.launches()) == set(KERNELS)
     assert set(ops.launches().values()) == {7}
@@ -211,6 +255,13 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     assert keep.shape == (2, 64) and valid.shape == (2, 64)
     assert match.shape == (2, 6)
     assert crops.shape == (2, 4, 8, 8, 3) and boxes.shape == (2, 4, 32, 4)
+    assert _call("iou_matrix", "cpu").shape == (5, 3)
+    assert _call("flash_attention", "cpu").shape == (1, 2, 128, 32)
+    assert _call("decode_attention", "cpu").shape == (2, 4, 32)
+    out, state = _call("rwkv_scan", "cpu")
+    assert out.shape == (1, 2, 16, 8) and state.shape == (1, 2, 8, 8)
+    keep, valid = _call("nms_serial", "cpu")
+    assert keep.shape == (4,) and valid.shape == (4,)
     assert ops.launches() == before
 
 
@@ -223,4 +274,47 @@ def test_library_names_track_source_and_flags():
     assert (build.CSRC / "nms.cu").is_file()
     assert (build.CSRC / "association.cu").is_file()
     assert "roi" in build.SOURCES and (build.CSRC / "roi.cu").is_file()
+    assert set(build.SOURCES) >= {"iou", "flash_attention",
+                                  "decode_attention", "rwkv_scan"}
     assert all((build.CSRC / f"{n}.cu").is_file() for n in build.SOURCES)
+
+
+WRAPPERS = {"iou_matrix_cuda": ("iou", _iou_args, {}),
+            "flash_attention_cuda": ("flash_attention", _flash_args, {}),
+            "decode_attention_cuda": ("decode_attention", _decode_args, {}),
+            "rwkv_scan_cuda": ("rwkv_scan", _rwkv_args, {})}
+
+
+@pytest.mark.parametrize("wrapper", sorted(WRAPPERS))
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_new_cuda_wrappers_refuse_non_cuda_tensors(monkeypatch, wrapper,
+                                                   device):
+    """With the library loaded, each new CUDA wrapper called on CPU (or
+    meta) tensors raises before launching: nothing launched, nothing
+    counted, no plain version."""
+    import importlib
+    module, make, kw = WRAPPERS[wrapper]
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    launched = []
+
+    def loader(*a, **k):
+        return lambda *args: launched.append(args) or 0
+
+    monkeypatch.setattr(build, "function", loader)
+    before = ops.launches()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        getattr(mod, wrapper)(*make(device), **kw)
+    assert not launched and ops.launches() == before
+
+
+def test_library_names_track_shared_headers(monkeypatch, tmp_path):
+    """Editing a shared ``csrc/*.cuh`` header renames every library, so
+    no library built against the old header loads."""
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path("a")
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert build.library_path("a") != before
+    assert (build.CSRC / "a.cu").is_file()
+    assert (REPO / "src/repro_torch/kernels/csrc/common.cuh").is_file()

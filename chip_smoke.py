@@ -39,10 +39,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``ops.decode_attention`` at qwen3-4b (B=4, H=32, KV=8, S=32768,
    bf16) and in f32 MQA (2,8,1,512,128) and MHA (2,16,16,1024,64),
    ``ops.rwkv_scan`` at rwkv6-3b (B=4, H=40, hs=64, T=2048, bf16 and
-   f32) and at T=100, hs=32; each output within the reference's
-   kernel tolerances of the plain version on the same inputs (rtol =
-   atol = 2e-5 in f32, 2e-2 in bf16, five times that for the RWKV
-   state).
+   f32) and at T=100, hs=32, plus small bf16 cases for the template
+   instances those do not reach (flash D=64 and D=32 with S < T, decode
+   D=256 and S=100, the scan at hs=128 and hs=16).  Each float32 result
+   is within the reference's float32 kernel tolerance of the plain
+   version on the same inputs (rtol = atol = 2e-5, five times that for
+   the RWKV state).  A bf16 case is held before its one rounding: on the
+   inputs widened to float32, the kernel's float32 instance must round
+   to the bf16 results bit for bit and be within that tolerance of the
+   plain version's float32 result.
 
 ``--profile`` adds one more serve of each path under ``torch.profiler``
 and prints the device time by kernel and the device's busy share.
@@ -140,8 +145,26 @@ RWKV_CASES = (
     ("rwkv6-3b T=2048 bf16", 4, 40, 2048, 64, torch.bfloat16),
     ("rwkv6-3b T=2048 f32", 4, 40, 2048, 64, torch.float32),
     ("T=100 hs=32 f32", 2, 8, 100, 32, torch.float32))
-# the reference's kernel-vs-oracle tolerances (tests/test_kernels.py)
-ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# small cases, checked but not timed, that reach the template instances
+# the model widths above do not: flash D <= 64 and D <= 32 (the second
+# with the causal rows that see no key, S < T), decode at D = 256 and at
+# S < 512, the scan at hs <= 128 and hs < 32; in bfloat16, so that the
+# float32 instance of the same width is compared too (hold_to_plain)
+FLASH_EDGE_CASES = (
+    ("D=64 causal T=256 S=384 bf16", 1, 4, 256, 384, 64, True,
+     torch.bfloat16),
+    ("D=32 causal T=256 S=128 bf16", 2, 2, 256, 128, 32, True,
+     torch.bfloat16))
+DECODE_EDGE_CASES = (
+    ("D=256 (1,8,2,512,256) bf16", 1, 8, 2, 512, 256, torch.bfloat16),
+    ("S=100 (1,4,2,100,32) bf16", 1, 4, 2, 100, 32, torch.bfloat16))
+RWKV_EDGE_CASES = (
+    ("hs=128 T=64 bf16", 1, 2, 64, 128, torch.bfloat16),
+    ("hs=16 T=48 bf16", 1, 2, 48, 16, torch.bfloat16))
+# the reference's float32 kernel tolerance (tests/test_kernels.py), rtol =
+# atol, five times that for the RWKV state; a bfloat16 case is held to it
+# before its one final rounding (hold_to_plain)
+F32_TOL = 2e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -907,6 +930,41 @@ def _close(got, want, tol):
     return err, bool(torch.allclose(g, w, rtol=tol, atol=tol))
 
 
+def hold_to_plain(tag, name, got, x, kernel, plain, tols):
+    """Hold a kernel's results ``got`` (a tuple) on inputs ``x`` against
+    its plain version; print the differences and return the largest one
+    in float32 (before a bf16 rounding), the largest between the results
+    themselves, and whether every check held.
+
+    Float32 inputs: each result within ``tols`` (rtol = atol, one a
+    result) of the plain version's.  Bfloat16 inputs: kernel and plain
+    version both compute in float32 and round once, and widening bf16 to
+    float32 is exact, so on the widened inputs the kernel's float32
+    instance does the same arithmetic.  Its results must round to ``got``
+    bit for bit, and must be within ``tols`` of the plain version's
+    float32 results: the bf16 results are held to the plain version
+    before the last rounding, not to the bf16 grid."""
+    wide = tuple(t.float() for t in x)
+    want = plain(*wide)
+    bf16 = x[0].dtype == torch.bfloat16
+    k32 = kernel(*wide) if bf16 else got
+    k32, want = ((r,) if torch.is_tensor(r) else r for r in (k32, want))
+    exact = all(torch.equal(g, k.to(g.dtype)) for g, k in zip(got, k32))
+    errs = [_close(k, w, tol) for k, w, tol in zip(k32, want, tols)]
+    shapes = all(g.shape == k.shape == w.shape and k.dtype == w.dtype
+                 for g, k, w in zip(got, k32, want))
+    ok = exact and shapes and all(o for _, o in errs)
+    msg = "; ".join(f"float32 max |kernel - plain| {e:.3e} within {tol}: "
+                    f"{o}" for (e, o), tol in zip(errs, tols))
+    direct = max(_close(g, w.to(g.dtype), 0.0)[0]
+                 for g, w in zip(got, want))
+    if bf16:
+        msg += (f"; bf16 result == float32 instance rounded: {exact}; "
+                f"bf16 max |kernel - plain| {direct:.3e}")
+    print(f"[{tag}] {name}: {msg}")
+    return max(e for e, _ in errs), direct, ok
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
 
@@ -1012,19 +1070,22 @@ def _sdpa_causal(T, S):
 
 
 def phase_attention():
-    """The attention and scan kernels at model widths: every case through
-    ``ops`` with the counters zeroed first, then each output against the
-    plain version on the same inputs, then times at the first case."""
+    """The attention and scan kernels at model widths (and small cases
+    for the other template instances): every case through ``ops`` with
+    the counters zeroed first, then each result against the plain
+    version (``hold_to_plain``), then times at the model widths."""
     g = torch.Generator(device=DEV).manual_seed(SEED + 7)
     flash_in = [(c, tuple(_randn(g, (B, H, n, D), c[-1])
                           for n in (T, S, S)))
-                for c in FLASH_CASES for B, H, T, S, D in [c[1:6]]]
+                for c in FLASH_CASES + FLASH_EDGE_CASES
+                for B, H, T, S, D in [c[1:6]]]
     decode_in = [(c, (_randn(g, (B, H, D), c[-1]),
                       _randn(g, (B, S, KV, D), c[-1]),
                       _randn(g, (B, S, KV, D), c[-1])))
-                 for c in DECODE_CASES for B, H, KV, S, D in [c[1:6]]]
+                 for c in DECODE_CASES + DECODE_EDGE_CASES
+                 for B, H, KV, S, D in [c[1:6]]]
     rwkv_in = []
-    for c in RWKV_CASES:
+    for c in RWKV_CASES + RWKV_EDGE_CASES:
         _, B, H, T, hs, dt = c
         r, k, v = (_randn(g, (B, H, T, hs), dt) for _ in range(3))
         w = (torch.sigmoid(_randn(g, (B, H, T, hs))) * 0.5 + 0.45).to(dt)
@@ -1052,44 +1113,36 @@ def phase_attention():
           f"attention path launched other kernels: {launches}")
 
     worst = {"flash": 0.0, "decode": 0.0, "rwkv": 0.0}
-    for (c, x), got in zip(flash_in, flash_out):
-        want = kflash.flash_attention_torch(*x, causal=c[6])
-        check(got.shape == want.shape and got.dtype == x[0].dtype
-              and bool(torch.isfinite(got.float()).all()),
-              f"flash {c[0]}: shape/dtype/finite")
-        err, ok = _close(got, want, ATTN_TOL[c[-1]])
-        print(f"[flash] {c[0]}: max |err| {err:.3e} within "
-              f"{ATTN_TOL[c[-1]]}={ok}")
-        check(ok, f"flash_attention kernel != plain version on {c[0]}")
-        worst["flash"] = max(worst["flash"], err)
-    for (c, x), got in zip(decode_in, decode_out):
-        want = kdecode.decode_attention_torch(*x)
-        check(got.shape == want.shape and got.dtype == x[0].dtype
-              and bool(torch.isfinite(got.float()).all()),
-              f"decode {c[0]}: shape/dtype/finite")
-        err, ok = _close(got, want, ATTN_TOL[c[-1]])
-        print(f"[decode] {c[0]}: max |err| {err:.3e} within "
-              f"{ATTN_TOL[c[-1]]}={ok}")
-        check(ok, f"decode_attention kernel != plain version on {c[0]}")
-        worst["decode"] = max(worst["decode"], err)
-    for (c, x), (got_o, got_s) in zip(rwkv_in, rwkv_out):
-        want_o, want_s = krwkv.rwkv_scan_torch(*x)
-        tol = ATTN_TOL[c[-1]]
-        err_o, ok_o = _close(got_o, want_o, tol)
-        err_s, ok_s = _close(got_s, want_s, 5 * tol)
-        check(got_o.dtype == x[0].dtype and got_s.dtype == torch.float32
-              and bool(torch.isfinite(got_o.float()).all())
-              and bool(torch.isfinite(got_s).all()),
-              f"rwkv {c[0]}: dtype/finite")
-        print(f"[rwkv] {c[0]}: out max |err| {err_o:.3e} within {tol}="
-              f"{ok_o}; state max |err| {err_s:.3e} within {5 * tol}={ok_s}")
-        check(ok_o and ok_s, f"rwkv_scan kernel != plain version on {c[0]}")
-        worst["rwkv"] = max(worst["rwkv"], err_o, err_s)
+    worst32 = dict(worst)
+    failed = []
+    for tag, ins, outs, kernel, plain, tols in (
+            ("flash", flash_in, flash_out, kflash.flash_attention_cuda,
+             kflash.flash_attention_torch, (F32_TOL,)),
+            ("decode", decode_in, decode_out,
+             kdecode.decode_attention_cuda,
+             kdecode.decode_attention_torch, (F32_TOL,)),
+            ("rwkv", rwkv_in, rwkv_out, krwkv.rwkv_scan_cuda,
+             krwkv.rwkv_scan_torch, (F32_TOL, 5 * F32_TOL))):
+        for (c, x), got in zip(ins, outs):
+            got = (got,) if torch.is_tensor(got) else got
+            kw = dict(causal=c[6]) if tag == "flash" else {}
+            check(got[0].dtype == x[0].dtype
+                  and all(g.dtype == torch.float32 for g in got[1:])
+                  and all(bool(torch.isfinite(g.float()).all())
+                          for g in got), f"{tag} {c[0]}: dtype/finite")
+            err32, err, ok = hold_to_plain(
+                tag, c[0], got, x, lambda *a: kernel(*a, **kw),
+                lambda *a: plain(*a, **kw), tols)
+            worst[tag] = max(worst[tag], err)
+            worst32[tag] = max(worst32[tag], err32)
+            if not ok:
+                failed.append(f"{tag} {c[0]}")
+    check(not failed, f"kernels != plain versions on {failed}")
 
     import torch.nn.functional as F
     stream = torch.cuda.current_stream().cuda_stream
     entries = {}
-    for i, (c, x) in enumerate(flash_in):
+    for i, (c, x) in enumerate(flash_in[:len(FLASH_CASES)]):
         name, B, H, T, S, D, causal, dt = c
         q, k, v = x
         ms = cuda_ms(lambda: kflash.flash_attention_cuda(q, k, v,
@@ -1100,7 +1153,7 @@ def phase_attention():
         mask = _sdpa_causal(T, S) if causal else None
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=mask)
-        lib_err = _close(lib(), flash_out[i], ATTN_TOL[dt])[0]
+        lib_err = _close(lib(), flash_out[i], F32_TOL)[0]
         lib_ms = cuda_ms(lib, iters=20, warmup=3)
         bound, by = flash_bound_ms(B, H, T, S, D, causal, dt)
         print(f"[flash] {name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms,"
@@ -1120,10 +1173,12 @@ def phase_attention():
                 name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:71",
-                max_abs_err=worst["flash"], ms=ms, kernel_only_ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=worst["flash"],
+                max_abs_err_f32=worst32["flash"], ms=ms,
+                kernel_only_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by,
                 library_ms=lib_ms, shape=name)
-    for i, (c, x) in enumerate(decode_in):
+    for i, (c, x) in enumerate(decode_in[:len(DECODE_CASES)]):
         name, B, H, KV, S, D, dt = c
         q, k, v = x
         ms = cuda_ms(lambda: kdecode.decode_attention_cuda(q, k, v),
@@ -1133,7 +1188,7 @@ def phase_attention():
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)    # (B, KV, S, D)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q[:, :, None], kt, vt, enable_gqa=True)[:, :, 0]
-        lib_err = _close(lib(), decode_out[i], ATTN_TOL[dt])[0]
+        lib_err = _close(lib(), decode_out[i], F32_TOL)[0]
         lib_ms = cuda_ms(lib, iters=20, warmup=3)
         bound, by = decode_bound_ms(B, H, KV, S, D, dt)
         print(f"[decode] {name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} "
@@ -1153,10 +1208,11 @@ def phase_attention():
                 name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:54",
-                max_abs_err=worst["decode"], ms=ms,
+                max_abs_err=worst["decode"],
+                max_abs_err_f32=worst32["decode"], ms=ms,
                 kernel_only_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms, shape=name)
-    for i, (c, x) in enumerate(rwkv_in):
+    for i, (c, x) in enumerate(rwkv_in[:len(RWKV_CASES)]):
         name, B, H, T, hs, dt = c
         ms = cuda_ms(lambda: krwkv.rwkv_scan_cuda(*x), iters=20, warmup=3)
         plain_ms = cuda_ms(lambda: krwkv.rwkv_scan_torch(*x), iters=2,
@@ -1181,8 +1237,10 @@ def phase_attention():
                 name="rwkv_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/rwkv_scan.cu",
                 replaces="src/repro/kernels/rwkv_scan.py:57",
-                max_abs_err=worst["rwkv"], ms=ms, kernel_only_ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=worst["rwkv"],
+                max_abs_err_f32=worst32["rwkv"], ms=ms,
+                kernel_only_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by,
                 library_ms=None, shape=name)
     return launches, entries
 

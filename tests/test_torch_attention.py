@@ -184,6 +184,45 @@ def test_torch_oracles_match_jax_oracles(dtype):
                                atol=tol["atol"] * 5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["flash causal T=S", "flash causal S>T",
+                                  "flash full S<T", "decode GQA", "rwkv"])
+def test_plain_versions_match_torch_oracles(case, dtype):
+    """The port's own oracles as a second witness for the plain versions
+    (which the CUDA kernels are held to on the card), at the kernels'
+    two input types, with the reference's kernel-vs-oracle tolerances:
+    in bfloat16 the attention oracles round p to bfloat16 where the plain
+    versions stay in float32.  The RWKV oracle as written forms k * v in
+    the inputs' type, which neither the Pallas kernel nor the plain
+    version does, so in bfloat16 it runs on the inputs widened to
+    float32 (exactly) and its output is rounded once."""
+    rng = np.random.default_rng(5)
+    tol = TOL[dtype]
+    if case.startswith("flash"):
+        T, S = {"flash causal T=S": (128, 128), "flash causal S>T":
+                (128, 256), "flash full S<T": (256, 128)}[case]
+        causal = "causal" in case
+        q, k, v = (_pair(rng.standard_normal(s), dtype)[0]
+                   for s in ((1, 2, T, 64), (1, 2, S, 64), (1, 2, S, 64)))
+        got = flash_attention_torch(q, k, v, causal=causal)
+        want = tref.flash_attention_ref(q, k, v, causal=causal)
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+    elif case == "decode GQA":
+        q, k, v = (_pair(rng.standard_normal(s), dtype)[0]
+                   for s in ((2, 8, 64), (2, 512, 2, 64), (2, 512, 2, 64)))
+        np.testing.assert_allclose(_np(decode_attention_torch(q, k, v)),
+                                   _np(tref.decode_attention_ref(q, k, v)),
+                                   **tol)
+    else:
+        targs, _ = _rwkv_inputs(1, 2, 64, 32, dtype, seed=5)
+        po, ps = rwkv_scan_torch(*targs)
+        oo, os_ = tref.rwkv_scan_ref(*(t.float() for t in targs))
+        oo = oo.to(po.dtype)
+        np.testing.assert_allclose(_np(po), _np(oo), **tol)
+        np.testing.assert_allclose(_np(ps), _np(os_), rtol=tol["rtol"] * 5,
+                                   atol=tol["atol"] * 5)
+
+
 # --------------------------------------------------------- preconditions
 def test_flash_attention_needs_multiples_of_128():
     x = torch.zeros((1, 1, 128, 32))

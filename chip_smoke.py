@@ -5,7 +5,11 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
-   for sm_90a into ``build/kernels`` (one nvcc per source, in parallel);
+   for sm_90a into ``build/kernels`` (one nvcc per source, in parallel,
+   each with its own flags: ``kernels.build.flags``), print ptxas's
+   registers and spills of every instance, and check the identity the
+   flash kernel's bf16 bit check rests on: on the tensor cores, D = 0 . B
+   + C returns C bit for bit (``check_mma_zero_identity``);
 2. hold each kernel against its plain PyTorch version on the card, at
    the serving path's shapes and at edge cases: NMS ``keep``/``valid``,
    the assignment's ``match``, the ROI crops and the uncropped boxes
@@ -40,8 +44,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    bf16) and in f32 MQA (2,8,1,512,128) and MHA (2,16,16,1024,64),
    ``ops.rwkv_scan`` at rwkv6-3b (B=4, H=40, hs=64, T=2048, bf16 and
    f32) and at T=100, hs=32, plus small bf16 cases for the template
-   instances those do not reach (flash D=64 and D=32 with S < T, decode
-   D=256 and S=100, the scan at hs=128 and hs=16).  Each float32 result
+   instances those do not reach (flash D=64, D=32 with S < T and D=36,
+   decode D=256, S=100 and D=36 with G=16, the scan at hs=128 and hs=16;
+   D=36 takes the kernels' scalar loads).  Each float32 result
    is within the reference's float32 kernel tolerance of the plain
    version on the same inputs (rtol = atol = 2e-5, five times that for
    the RWKV state).  A bf16 case is held before its one rounding: on the
@@ -50,15 +55,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain version's float32 result.
 
 ``--profile`` adds one more serve of each path under ``torch.profiler``
-and prints the device time by kernel and the device's busy share.
+and prints the device time by kernel and the device's busy share, and
+the kernels that the timed flash and decode calls and their SDPA
+yardsticks launch.
 
 Each kernel is timed with CUDA events (its wrapper and, where the
 wrapper does more than launch, the kernel alone), beside its plain
 version, the least time the card could take for the same work (bytes
 at 3.35 TB/s; operations at 67 TFLOP/s for float32 inputs and at the
-989 TFLOP/s dense bf16 tensor-core rate for bfloat16 inputs) and, where
-one PyTorch call computes the same function, that call's time (SDPA for
-the two attention kernels; used for comparison only).
+989 TFLOP/s dense bf16 tensor-core rate for bfloat16 inputs), the rate
+achieved (GB/s for decode, TFLOP/s for flash) and its share of the bound,
+and, where one PyTorch call computes the same function, that call's time
+(SDPA for the two attention kernels; used for comparison only).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 card's name and power limit are printed before it; the last line is
@@ -66,6 +74,7 @@ card's name and power limit are printed before it; the last line is
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -154,10 +163,14 @@ FLASH_EDGE_CASES = (
     ("D=64 causal T=256 S=384 bf16", 1, 4, 256, 384, 64, True,
      torch.bfloat16),
     ("D=32 causal T=256 S=128 bf16", 2, 2, 256, 128, 32, True,
-     torch.bfloat16))
+     torch.bfloat16),
+    ("D=36 (scalar loads) causal T=128 S=256 bf16", 1, 2, 128, 256, 36,
+     True, torch.bfloat16))
 DECODE_EDGE_CASES = (
     ("D=256 (1,8,2,512,256) bf16", 1, 8, 2, 512, 256, torch.bfloat16),
-    ("S=100 (1,4,2,100,32) bf16", 1, 4, 2, 100, 32, torch.bfloat16))
+    ("S=100 (1,4,2,100,32) bf16", 1, 4, 2, 100, 32, torch.bfloat16),
+    ("D=36 (scalar loads) G=16 (1,16,1,512,36) bf16", 1, 16, 1, 512, 36,
+     torch.bfloat16))
 RWKV_EDGE_CASES = (
     ("hs=128 T=64 bf16", 1, 2, 64, 128, torch.bfloat16),
     ("hs=16 T=48 bf16", 1, 2, 48, 16, torch.bfloat16))
@@ -433,18 +446,28 @@ def flash_bound_ms(B, H, T, S, D, causal, dtype):
     2 D for q.k and 2 D for p.v on every (query, seen key) pair (the
     causal mask's pairs only), at the peak rate of the inputs' type."""
     esize = torch.tensor([], dtype=dtype).element_size()
+    return _bound(esize * B * H * (2 * T * D + 2 * S * D),
+                  flash_flops(B, H, T, S, D, causal), _peak(dtype))
+
+
+def flash_flops(B, H, T, S, D, causal):
+    """4 D a (query, seen key) pair: 2 D for q.k and 2 D for p.v."""
     t = np.arange(T)
     seen = np.clip(t + (S - T) + 1, 0, S).sum() if causal else T * S
-    return _bound(esize * B * H * (2 * T * D + 2 * S * D),
-                  4 * D * B * H * int(seen), _peak(dtype))
+    return 4 * D * B * H * int(seen)
+
+
+def decode_bytes(B, H, KV, S, D, dtype):
+    """q, the K and V caches read once and the output written once."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    return esize * (2 * B * H * D + 2 * B * S * KV * D)
 
 
 def decode_bound_ms(B, H, KV, S, D, dtype):
-    """Bytes: q, the K and V caches read once and the output written
-    once; operations: 4 D a (query head, cache row) pair."""
-    esize = torch.tensor([], dtype=dtype).element_size()
-    return _bound(esize * (2 * B * H * D + 2 * B * S * KV * D),
-                  4 * D * B * H * S, _peak(dtype))
+    """Bytes: ``decode_bytes``; operations: 4 D a (query head, cache
+    row) pair."""
+    return _bound(decode_bytes(B, H, KV, S, D, dtype), 4 * D * B * H * S,
+                  _peak(dtype))
 
 
 def rwkv_bound_ms(B, H, T, hs, dtype):
@@ -465,12 +488,68 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in paths.values()))
     for name in paths:
+        print(f"[build] {name}: flags {' '.join(build.flags(name))}")
         log = build.BUILD_DIR / f"{name}.log"
         if log.is_file():
-            for line in log.read_text().splitlines():
-                if ("registers" in line or "spill" in line
-                        or "Function properties" in line):
-                    print(f"[build] {name}: {line.strip()}")
+            for line in ptxas_summary(log.read_text()):
+                print(f"[build] {name}: {line}")
+
+
+def ptxas_summary(log):
+    """One line per kernel of an ``nvcc -Xptxas=-v`` log: its name and
+    template arguments, registers, static shared memory and spill
+    bytes."""
+    import re
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?\d+([a-z_]+kernel)"
+                      r"(?:I(\w+?)EEv)?", line)
+        if m:
+            args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, n)
+                    for a, n in re.findall(r"(13__nv_bfloat16|f)|Li(\d+)E",
+                                           m.group(2) or "")]
+            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} bytes"
+            continue
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, "
+                       f"{m.group(2) or 0} bytes static smem, {spill}")
+            name = None
+    return out
+
+
+def check_mma_zero_identity(n_tiles=512):
+    """The identity the flash kernel's bf16 bit check rests on: on the
+    tensor cores, as the kernel runs them (wgmma, bf16 in, float32
+    accumulate; A from registers and from shared memory), D = 0 . B + C
+    returns C bit for bit, for accumulators of every magnitude the kernel
+    meets and a random bf16 operand beside the zero one."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    n = n_tiles * 2 * 128 * 32
+    c = torch.randn(n, generator=g, device=DEV) * torch.exp2(
+        torch.randint(-40, 40, (n,), generator=g, device=DEV).float())
+    b = torch.randn(n_tiles * 64 * 64, generator=g, device=DEV).to(
+        torch.bfloat16)
+    d = torch.empty_like(c)
+    probe = build.function("flash_attention", "flash_mma_zero_probe",
+                           [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                    ctypes.c_void_p])
+    build.check(probe(c.data_ptr(), b.data_ptr(), d.data_ptr(), n_tiles,
+                      torch.cuda.current_stream().cuda_stream),
+                "flash_mma_zero_probe")
+    torch.cuda.synchronize()
+    same = torch.equal(d.view(torch.int32), c.view(torch.int32))
+    print(f"[mma-zero] D = 0 . B + C, wgmma m64n64k16 with the zero "
+          f"operand in registers and in shared memory, {n} accumulators "
+          f"(|C| from {float(c.abs().min()):.2e} to "
+          f"{float(c.abs().max()):.2e}): bit-equal to C: {same}")
+    check(same, "wgmma: 0 . B + C != C; the flash bit check cannot hold "
+          "by construction")
 
 
 def check_counters(b, s, assign_args, crop_args, uncrop_args):
@@ -806,6 +885,37 @@ def phase_profile(label, eng, frames):
         eng.serve(frames)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    print(f"[profile {label}] serve wall {wall_ms:.2f} ms (profiled), "
+          f"device busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.3f} of "
+          f"wall, {sum(r[1] for r in rows)} device events")
+    for dev_us, count, key in rows[:15]:
+        print(f"[profile {label}] {dev_us / 1e3:9.3f} ms {count:6d}x  "
+              f"{key[:90]}")
+
+
+def profile_calls(label, calls, reps=5):
+    """``reps`` calls of each ``(name, fn)`` under ``torch.profiler``:
+    device time a call by kernel, to name what each call launches (ours:
+    one kernel; SDPA: the library's own)."""
+    from torch.profiler import ProfilerActivity, profile
+    for name, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for dev_us, count, key in _device_rows(prof)[:4]:
+            print(f"[profile {label}] {name}: {dev_us / reps / 1e3:.4f} ms "
+                  f"a call, {count // reps}x  {key[:80]}")
+
+
+def _device_rows(prof):
+    """(device us, count, kernel name) of a profile's device-side
+    events, largest first."""
     rows = []
     for e in prof.key_averages():
         # device-side events only: an aten op's row repeats the time of
@@ -817,13 +927,7 @@ def phase_profile(label, eng, frames):
         if dev_us > 0:
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"[profile {label}] serve wall {wall_ms:.2f} ms (profiled), "
-          f"device busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.3f} of "
-          f"wall, {sum(r[1] for r in rows)} device events")
-    for dev_us, count, key in rows[:15]:
-        print(f"[profile {label}] {dev_us / 1e3:9.3f} ms {count:6d}x  "
-              f"{key[:90]}")
+    return rows
 
 
 def assert_same_report(a, b, what):
@@ -1069,11 +1173,13 @@ def _sdpa_causal(T, S):
     return causal_lower_right(T, S)
 
 
-def phase_attention():
+def phase_attention(profile=False):
     """The attention and scan kernels at model widths (and small cases
     for the other template instances): every case through ``ops`` with
     the counters zeroed first, then each result against the plain
-    version (``hold_to_plain``), then times at the model widths."""
+    version (``hold_to_plain``), then times at the model widths;
+    ``profile`` adds ``torch.profiler``'s kernels for the timed
+    flash and decode calls and their SDPA yardsticks."""
     g = torch.Generator(device=DEV).manual_seed(SEED + 7)
     flash_in = [(c, tuple(_randn(g, (B, H, n, D), c[-1])
                           for n in (T, S, S)))
@@ -1138,6 +1244,11 @@ def phase_attention():
             if not ok:
                 failed.append(f"{tag} {c[0]}")
     check(not failed, f"kernels != plain versions on {failed}")
+    for c, _ in decode_in:
+        _, B, H, KV, S, D, _ = c
+        n, rows = kdecode.split_rows(B, KV, S, D)
+        print(f"[decode] {c[0]}: {n} splits of {rows} rows, "
+              f"{B * KV * -(-(H // KV) // 8) * n} CTAs")
 
     import torch.nn.functional as F
     stream = torch.cuda.current_stream().cuda_stream
@@ -1156,9 +1267,12 @@ def phase_attention():
         lib_err = _close(lib(), flash_out[i], F32_TOL)[0]
         lib_ms = cuda_ms(lib, iters=20, warmup=3)
         bound, by = flash_bound_ms(B, H, T, S, D, causal, dt)
+        tflops = flash_flops(B, H, T, S, D, causal) / ms * 1e-9
         print(f"[flash] {name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms,"
               f" SDPA {lib_ms:.4f} ms (|SDPA - kernel| {lib_err:.2e}), "
-              f"bound {bound:.4f} ms ({by})")
+              f"bound {bound:.4f} ms ({by}); {tflops:.1f} TFLOP/s, "
+              f"{bound / ms:.3f} of the bound; kernel / SDPA "
+              f"{ms / lib_ms:.2f}")
         if i == 0:
             out = torch.empty_like(q)
             launch = build.function("flash_attention",
@@ -1168,6 +1282,8 @@ def phase_attention():
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), B, H, T, S, D,
                 D ** -0.5, int(causal), kflash._DTYPES[dt], out.data_ptr(),
                 stream), iters=20, warmup=3)
+            check(torch.equal(out, flash_out[i]),
+                  "flash kernel alone != the wrapper's result")
             print(f"[flash] {name}: kernel alone {kernel_ms:.4f} ms")
             entries["flash_attention"] = dict(
                 name="flash_attention", route="cuda",
@@ -1191,18 +1307,28 @@ def phase_attention():
         lib_err = _close(lib(), decode_out[i], F32_TOL)[0]
         lib_ms = cuda_ms(lib, iters=20, warmup=3)
         bound, by = decode_bound_ms(B, H, KV, S, D, dt)
+        gbs = decode_bytes(B, H, KV, S, D, dt) / ms * 1e-6
         print(f"[decode] {name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, SDPA(enable_gqa) {lib_ms:.4f} ms (|SDPA - kernel| "
-              f"{lib_err:.2e}), bound {bound:.4f} ms ({by})")
+              f"{lib_err:.2e}), bound {bound:.4f} ms ({by}); {gbs:.0f} GB/s,"
+              f" {bound / ms:.3f} of the bound; kernel / SDPA "
+              f"{ms / lib_ms:.2f}")
         if i == 0:
             out = torch.empty_like(q)
             launch = build.function("decode_attention",
                                     "decode_attention_launch",
                                     kdecode._LAUNCH_ARGS)
+            n_split, rows = kdecode.split_rows(B, KV, S, D)
+            part = torch.empty(B * H * n_split * (D + 2), device=DEV)
+            # the kernel leaves its tickets at zero again
+            tickets = torch.zeros(B * H, dtype=torch.int32, device=DEV)
             kernel_ms = cuda_ms(lambda: launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), B, H, KV, S, D,
-                D ** -0.5, kdecode._DTYPES[dt], out.data_ptr(), stream),
-                iters=20, warmup=3)
+                D ** -0.5, kdecode._DTYPES[dt], rows, n_split,
+                part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+                stream), iters=20, warmup=3)
+            check(torch.equal(out, decode_out[i]),
+                  "decode kernel alone != the wrapper's result")
             print(f"[decode] {name}: kernel alone {kernel_ms:.4f} ms")
             entries["decode_attention"] = dict(
                 name="decode_attention", route="cuda",
@@ -1212,6 +1338,22 @@ def phase_attention():
                 max_abs_err_f32=worst32["decode"], ms=ms,
                 kernel_only_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms, shape=name)
+    if profile:
+        calls = []
+        for c, (q, k, v) in flash_in[:2]:
+            T, S = c[3], c[4]
+            calls += [(c[0], lambda q=q, k=k, v=v: ops.flash_attention(
+                q, k, v)), (f"SDPA {c[0]}",
+                           lambda q=q, k=k, v=v, T=T, S=S:
+                           F.scaled_dot_product_attention(
+                               q, k, v, attn_mask=_sdpa_causal(T, S)))]
+        q, k, v = decode_in[0][1]
+        calls += [(decode_in[0][0][0], lambda: ops.decode_attention(q, k, v)),
+                  (f"SDPA {decode_in[0][0][0]}",
+                   lambda: F.scaled_dot_product_attention(
+                       q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                       enable_gqa=True))]
+        profile_calls("attention", calls)
     for i, (c, x) in enumerate(rwkv_in[:len(RWKV_CASES)]):
         name, B, H, T, hs, dt = c
         ms = cuda_ms(lambda: krwkv.rwkv_scan_cuda(*x), iters=20, warmup=3)
@@ -1266,6 +1408,7 @@ def main() -> int:
           f"{sys.version.split()[0]}")
     t_start = time.perf_counter()
     phase_build()
+    check_mma_zero_identity()
     cfg = SSDConfig()
     params = init_ssd(cfg, torch.Generator().manual_seed(SEED), device=DEV)
     # the draws of init_ssd may change with the PyTorch version: this
@@ -1282,7 +1425,8 @@ def main() -> int:
     phase_parity(params, cfg)
     by_path["seed_nms"], entries["iou_matrix"] = phase_seed_nms(
         params, cfg, anchors, frames)
-    by_path["attention"], attn_entries = phase_attention()
+    by_path["attention"], attn_entries = phase_attention(
+        profile="--profile" in sys.argv[1:])
     entries.update(attn_entries)
     for k, e in entries.items():
         e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}

@@ -6,17 +6,20 @@ Each ``csrc/<name>.cu`` exports a plain C launcher.  It is compiled by
 header is compiled, so a build takes seconds.  All sources are compiled
 together (one ``nvcc`` process each, started at once) the first time any
 kernel is needed.  A library's file name carries a hash of its source,
-the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+the shared headers (``csrc/*.cuh``) and its flags, so an edited source
 is rebuilt and a stale one never loads.
 
-``-fmad=false`` is part of the contract, not a tuning flag: without it
-nvcc contracts ``area + area - inter`` and ``(x1 - x0) * (y1 - y0) + a``
-into fused multiply-adds, and an IoU compared against a threshold then
-flips on one ULP relative to the reference.  Division stays IEEE (no
-``--use_fast_math``).  The flag is global, so the attention and scan
-kernels pay for it too (a separate multiply and add where one FMA
-would do); they need no bit-exactness and could drop it in their own
-build.
+Flags are chosen per source (``flags``).  ``-fmad=false`` is part of
+the contract of the threshold kernels (``EXACT_SOURCES``), not a tuning
+flag: without it nvcc contracts ``area + area - inter`` and
+``(x1 - x0) * (y1 - y0) + a`` into fused multiply-adds, and an IoU
+compared against a threshold then flips on one ULP relative to the
+reference.  The RWKV scan keeps it too, so that its times stay
+comparable with its first port.  The two attention kernels drop it:
+each compiles its float32 and bfloat16 instances from one template and
+writes its hot sums with explicit ``__fmaf_rn`` / ``__fmul_rn`` /
+``__fadd_rn``, so contraction cannot make the instances differ.
+Division and ``expf`` stay IEEE everywhere (no ``--use_fast_math``).
 """
 from __future__ import annotations
 
@@ -33,11 +36,19 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("nms", "association", "roi", "iou", "flash_attention",
            "decode_attention", "rwkv_scan")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+# bit-exact against the reference's operation order (and the scan, kept
+# as first ported): no fused multiply-add
+EXACT_SOURCES = ("nms", "association", "roi", "iou", "rwkv_scan")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def flags(name: str) -> tuple:
+    """nvcc flags of source ``name``: ``BASE_FLAGS``, plus
+    ``-fmad=false`` for the ``EXACT_SOURCES``."""
+    return BASE_FLAGS + (("-fmad=false",) if name in EXACT_SOURCES else ())
 
 
 class KernelBuildError(RuntimeError):
@@ -60,10 +71,10 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where source ``name``'s library goes: the name carries a hash of
-    the source, of every shared header in ``csrc/`` and of the flags."""
+    the source, of every shared header in ``csrc/`` and of its flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    tag = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:12]}.so"
 
 
@@ -81,7 +92,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
         procs = {}
         for n, p in todo.items():
             tmp = p.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [cc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            cmd = [cc, *flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT,
                                          text=True), tmp)

@@ -10,6 +10,10 @@ positions in float32 (there is no length mask) and the result in q's
 type.  The reference streams the cache in blocks of ``min(512, S)`` and
 requires ``S`` to be a multiple of it; both versions keep that
 precondition.  ``LAUNCHES`` counts the CUDA wrapper's kernel launches.
+
+The CUDA kernel cuts the cache into ``split_rows`` splits, one CTA each
+per (batch, kv head), and merges them in a fixed order in the same
+launch; the cut depends on the shape alone, never on the type.
 """
 from __future__ import annotations
 
@@ -22,6 +26,35 @@ from . import build
 BLOCK_S = 512
 LAUNCHES = 0     # kernel launches made by decode_attention_cuda
 MAX_D = 256
+# the CUDA kernel's tiling (csrc/decode_attention.cu): 4 warps a CTA, a
+# lane group of D / 8 lanes (4, 8, 16 or 32) a cache row, 4 rows a group
+# per tile; and the CTAs to aim for, 4 on each of the H100's 132 SMs
+WARPS = 4
+ROWS_PER_GROUP = 4
+TARGET_CTAS = 4 * 132
+
+
+def lanes_per_row(D):
+    """Lanes that hold one cache row: each owns 8 values of d."""
+    return next(n for n in (4, 8, 16, 32) if 8 * n >= D)
+
+
+def tile_rows(D):
+    """Cache rows a CTA takes per tile."""
+    return WARPS * (32 // lanes_per_row(D)) * ROWS_PER_GROUP
+
+
+def split_rows(B, KV, S, D):
+    """``(n_split, rows)``: the CUDA kernel's cut of the S cache rows
+    into ``n_split`` splits of ``rows`` rows (a multiple of the tile; the
+    last split may be shorter, none is empty), about ``TARGET_CTAS``
+    CTAs over the B * KV (batch, kv head) pairs.  Reads the shape only,
+    so a float32 call on widened bf16 inputs cuts the cache the same
+    way."""
+    tile = tile_rows(D)
+    n = max(1, min(TARGET_CTAS // max(1, B * KV), -(-S // tile)))
+    rows = -(-(-(-S // n)) // tile) * tile
+    return -(-S // rows), rows
 
 
 def _check_shapes(q, k, v):
@@ -58,7 +91,7 @@ def decode_attention_torch(q, k, v, *, scale=None):
 
 
 _LAUNCH_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -84,9 +117,14 @@ def decode_attention_cuda(q, k, v, *, scale=None):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if B * H and D:
+        n_split, rows = split_rows(B, KV, S, D)
+        part = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                           device=dev)
+        tickets = torch.zeros(B * H, dtype=torch.int32, device=dev)
         # ctypes rounds the scale to float32, as q.float() * scale does
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, H, KV, S,
-                     D, float(_scale(scale, D)), _DTYPES[q.dtype],
+                     D, float(_scale(scale, D)), _DTYPES[q.dtype], rows,
+                     n_split, part.data_ptr(), tickets.data_ptr(),
                      out.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "decode_attention_launch")

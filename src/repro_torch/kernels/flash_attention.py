@@ -13,6 +13,10 @@ block and divides a zero accumulator by ``max(0, 1e-30)``.  (The
 reference's oracle returns the mean of v there instead.)  T and S must
 be multiples of 128, the reference's block size.  ``LAUNCHES`` counts
 the CUDA wrapper's kernel launches.
+
+The CUDA kernel multiplies bf16 pieces of its operands on the tensor
+cores (wgmma) in one order for both input types, so a bfloat16 result
+is the float32 instance's result on the widened inputs, rounded once.
 """
 from __future__ import annotations
 

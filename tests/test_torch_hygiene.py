@@ -268,9 +268,11 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
 def test_library_names_track_source_and_flags():
     p = build.library_path("nms")
     assert p.parent == build.BUILD_DIR and p.suffix == ".so"
-    assert "-fmad=false" in build.NVCC_FLAGS
-    assert "--use_fast_math" not in build.NVCC_FLAGS
-    assert any("sm_90a" in f for f in build.NVCC_FLAGS)
+    for name in ("nms", "association", "roi", "iou", "rwkv_scan"):
+        assert "-fmad=false" in build.flags(name), name
+    for name in build.SOURCES:
+        assert "--use_fast_math" not in build.flags(name), name
+        assert any("sm_90a" in f for f in build.flags(name)), name
     assert (build.CSRC / "nms.cu").is_file()
     assert (build.CSRC / "association.cu").is_file()
     assert "roi" in build.SOURCES and (build.CSRC / "roi.cu").is_file()
@@ -305,6 +307,18 @@ def test_new_cuda_wrappers_refuse_non_cuda_tensors(monkeypatch, wrapper,
     with pytest.raises(ValueError, match="CUDA tensors"):
         getattr(mod, wrapper)(*make(device), **kw)
     assert not launched and ops.launches() == before
+
+
+def test_library_names_track_each_sources_flags(monkeypatch):
+    """Changing one source's flags renames that source's library and no
+    other's."""
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    base = build.flags
+    monkeypatch.setattr(build, "flags", lambda n: base(n) + (
+        ("-lineinfo",) if n == "decode_attention" else ()))
+    after = {n: build.library_path(n) for n in build.SOURCES}
+    assert [n for n in build.SOURCES if after[n] != before[n]] == [
+        "decode_attention"]
 
 
 def test_library_names_track_shared_headers(monkeypatch, tmp_path):

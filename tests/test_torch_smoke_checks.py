@@ -2,12 +2,20 @@
 scan kernels to their plain versions on the card, exercised on the CPU
 with stand-ins for the kernels.
 
-The plain version itself must pass, in float32 and in bfloat16.  Two
-faulty stand-ins must fail: one that rounds the softmax probabilities to
-bfloat16 before PV in its bfloat16 instance only (within the reference's
-bf16 oracle tolerance 2e-2 of the plain version, so only the bit check
-against the float32 instance catches it), and one that drops the last
-eighth of the cache (caught by the float32 tolerance)."""
+The plain version itself must pass, in float32 and in bfloat16.  Faulty
+stand-ins must fail:
+
+* decode attention that rounds the softmax probabilities to bfloat16
+  before PV in its bfloat16 instance only (within the reference's bf16
+  oracle tolerance 2e-2 of the plain version, so only the bit check
+  against the float32 instance catches it), and one that drops the last
+  eighth of the cache (caught by the float32 tolerance);
+* the shortcuts the tensor-core flash kernel must not take: its bf16
+  instance rounding P to bf16 before P.V (the usual FA2 step), or
+  rounding q * scale to bf16; its float32 instance keeping only the hi
+  bf16 piece of each operand;
+* split decode whose merge order follows the instance's type (the
+  kernel's order must follow the shape alone)."""
 import importlib.util
 from pathlib import Path
 
@@ -47,6 +55,63 @@ def _drops_tail(q, k, v):
     """Decode attention over the first seven eighths of the cache."""
     n = k.shape[1] * 7 // 8
     return decode_attention_torch(q, k[:, :n], v[:, :n])
+
+
+def _flash_inputs(dtype, B=1, H=2, T=256, S=256, D=128, seed=3):
+    """Inputs at D = 128, whose scale 128 ** -0.5 is not a power of two
+    (at D = 64 rounding q * scale to bf16 would be exact)."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(s, generator=g).to(dtype)
+                 for s in ((B, H, T, D), (B, H, S, D), (B, H, S, D)))
+
+
+def _flash_with(q, k, v, round_p=False, round_qs=False, hi_only=False):
+    """Causal flash attention in float32 with one of the shortcuts, taken
+    by the bf16 instance (``round_p``, ``round_qs``) or by the float32
+    instance (``hi_only``) only."""
+    bf16 = q.dtype == torch.bfloat16
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    x = [t.float() for t in (q, k, v)]
+    if hi_only and not bf16:
+        x = [t.to(torch.bfloat16).float() for t in x]
+    qs = x[0] * D ** -0.5
+    if round_qs and bf16:
+        qs = qs.to(torch.bfloat16).float()
+    s = torch.einsum("bhtd,bhsd->bhts", qs, x[1])
+    seen = torch.arange(S)[None, :] <= torch.arange(T)[:, None] + (S - T)
+    p = torch.exp(torch.where(seen, s, -1e30) - torch.where(
+        seen, s, -1e30).amax(-1, keepdim=True)) * seen
+    l = p.sum(-1, keepdim=True)
+    if round_p and bf16:
+        p = p.to(torch.bfloat16).float()
+    out = torch.einsum("bhts,bhsd->bhtd", p, x[2]) / l
+    return out.to(q.dtype)
+
+
+def _split_decode(q, k, v, n_split=64):
+    """Split decode attention (per-split max, sum and PV in float32),
+    merged in the order 0, 1, ... in the float32 instance and in reverse
+    in the bf16 one."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, KV, H // KV, D) * D ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
+    s = s.reshape(B, KV, H // KV, n_split, S // n_split)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    vs = v.float().reshape(B, n_split, S // n_split, KV, D)
+    acc = torch.einsum("bkgnj,bnjkd->bkgnd", p, vs)
+    mm = m.amax(-2, keepdim=True)
+    c = torch.exp(m - mm)
+    order = range(n_split)
+    if q.dtype == torch.bfloat16:
+        order = reversed(order)
+    tot, den = 0.0, 0.0
+    for i in order:
+        tot = tot + acc[:, :, :, i] * c[:, :, :, i]
+        den = den + p[:, :, :, i].sum(-1, keepdim=True) * c[:, :, :, i]
+    return (tot / den).reshape(B, H, D).to(q.dtype)
 
 
 def _hold(got, x, kernel, plain, tols=(smoke.F32_TOL,)):
@@ -89,3 +154,66 @@ def test_dropped_cache_rows_fail(dtype):
     x = _decode_inputs(dtype)
     assert not _hold(_drops_tail(*x), x, _drops_tail,
                      decode_attention_torch)[2]
+
+
+@pytest.mark.parametrize("shortcut", ["round_p", "round_qs"])
+def test_flash_bf16_shortcuts_fail(shortcut):
+    """Rounding P (the FA2 step) or q * scale to bf16 in the bf16
+    instance: inside the reference's bf16 oracle tolerance, refused by
+    the bit check against the float32 instance."""
+    x = _flash_inputs(torch.bfloat16)
+    kernel = lambda *a: _flash_with(*a, **{shortcut: True})  # noqa: E731
+    plain = lambda *a: flash_attention_torch(*a, causal=True)  # noqa: E731
+    got = kernel(*x)
+    assert torch.allclose(got.float(), plain(*x).float(), rtol=2e-2,
+                          atol=2e-2)
+    assert not _hold(got, x, kernel, plain)[2]
+    assert _hold(_flash_with(*x), x, _flash_with, plain)[2]
+
+
+def test_flash_f32_hi_piece_only_fails():
+    """A float32 instance that keeps only the hi bf16 piece of Q, K and
+    V: its bf16 results pass the bit check (widened bf16 inputs are their
+    own hi piece), its float32 results fail the float32 tolerance."""
+    kernel = lambda *a: _flash_with(*a, hi_only=True)  # noqa: E731
+    plain = lambda *a: flash_attention_torch(*a, causal=True)  # noqa: E731
+    x = _flash_inputs(torch.float32)
+    assert not _hold(kernel(*x), x, kernel, plain)[2]
+    xb = _flash_inputs(torch.bfloat16)
+    assert _hold(kernel(*xb), xb, kernel, plain)[2]
+
+
+def test_decode_merge_order_by_type_fails():
+    """Splits merged in an order that follows the instance's type: within
+    the float32 tolerance, refused by the bit check."""
+    x = _decode_inputs(torch.bfloat16, B=16, H=32, KV=8, S=1024, D=128)
+    got = _split_decode(*x)
+    assert _hold(_split_decode(*(t.float() for t in x)),
+                 tuple(t.float() for t in x), _split_decode,
+                 decode_attention_torch)[2]
+    assert not _hold(got, x, _split_decode, decode_attention_torch)[2]
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_23f0aea712flash_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_iiifiiPS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_23f0aea712flash_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_iiifiiPS2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Function properties for _ZN52_GLOBAL__N__408c5d7c_19_decode_attention_cu_3848999b19decode_split_kernelIfLi8ELi16EEEvPKT_S3_S3_iiiiifiiiPfPiPS1_
+    8 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 221 registers, used 1 barriers, 16 bytes smem
+ptxas info    : Function properties for _ZN38_GLOBAL__N__af08db51_6_nms_cu_182c0d5b10nms_kernelEPK6float4PKfPKiiifiPiS7_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 16 bytes smem
+"""
+
+
+def test_ptxas_summary_names_each_instance():
+    """The smoke's build lines: one per kernel instance, with its
+    template arguments, registers, static shared memory and spills."""
+    assert smoke.ptxas_summary(PTXAS_LOG) == [
+        "flash_kernel<bf16, 128>: 128 registers, 0 bytes static smem, "
+        "spills 0/0 bytes",
+        "decode_split_kernel<f32, 8, 16>: 221 registers, 16 bytes static "
+        "smem, spills 12/4 bytes",
+        "nms_kernel: 32 registers, 16 bytes static smem, spills 0/0 bytes"]

@@ -13,10 +13,14 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. hold each kernel against its plain PyTorch version on the card, at
    the serving path's shapes and at edge cases: NMS ``keep``/``valid``,
    the assignment's ``match``, the ROI crops and the uncropped boxes
-   must be exactly equal (tolerance 0).  Times the kernel, its plain
-   version, and works out the least time the card could take;
+   must be exactly equal (tolerance 0); the NMS cases include the
+   kernel's own candidate sort at score ties, -0.0 beside 0.0, NaN
+   scores and A=2400.  Times the kernel, its plain version, and works
+   out the least time the card could take;
 3. serve an NVR trace (4 cameras x 32 frames of ``SyntheticVideo``
-   pixels) through ``repro_torch``'s ``DetectionEngine(
+   pixels), with the process-wide TF32 settings left at PyTorch's
+   defaults (printed; the port holds its convs in IEEE float32 itself),
+   through ``repro_torch``'s ``DetectionEngine(
    track_and_interpolate=True)`` on ``cuda`` with the real mini-SSD
    (random weights from a seed): coverage must be 1.0 and the NMS and
    assignment launch counters, zeroed just before the serve, > 0;
@@ -28,7 +32,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    serve; the report must equal the same serve on ``device="cpu"``;
 5. check the served paths against the CPU on the oracle detectors
    (NVR and cascade) and on a short mini-SSD NVR trace: the same
-   schedule, detections and track ids;
+   schedule, detections and track ids; and batch-size invariance on the
+   card: the same 20 frames at ``micro_batch`` 1 and 5 give equal
+   ``valid``, classes, keep order and track ids, and boxes and scores
+   within ``BATCH_ATOL`` (the largest difference is printed);
 6. the seed NMS path: ``ops.nms_serial`` (IoU matrix kernel + A-step
    greedy loop) and ``ops.nms`` (batched NMS kernel at B=1) on each of
    8 frames of mini-SSD candidates (A=160), counted from zero; both
@@ -45,14 +52,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``ops.rwkv_scan`` at rwkv6-3b (B=4, H=40, hs=64, T=2048, bf16 and
    f32) and at T=100, hs=32, plus small bf16 cases for the template
    instances those do not reach (flash D=64, D=32 with S < T and D=36,
-   decode D=256, S=100 and D=36 with G=16, the scan at hs=128 and hs=16;
-   D=36 takes the kernels' scalar loads).  Each float32 result
+   decode D=256, S=100 and D=36 with G=16, the scan at hs=256, 128, 36
+   and 16; D=36 takes the kernels' scalar loads), and flash float32's
+   accuracy margin, not timed: a T=256 query block on a 32768 cache,
+   checked like the others, and T=S=2048 with q scaled until |q.k.scale|
+   reaches ``LARGE_LOGIT``, measured against the plain version and
+   float64 but not held to 2e-5 (float32's own rounding of logits near
+   60 exceeds it; PERF.md).  Each float32 result
    is within the reference's float32 kernel tolerance of the plain
    version on the same inputs (rtol = atol = 2e-5, five times that for
    the RWKV state).  A bf16 case is held before its one rounding: on the
    inputs widened to float32, the kernel's float32 instance must round
    to the bf16 results bit for bit and be within that tolerance of the
-   plain version's float32 result.
+   plain version's float32 result.  Last, each width limit that remains
+   (flash D <= 128, decode D <= 256, the scan hs <= 512) must raise a
+   ValueError one past it, on CUDA tensors, with no launch counted.
 
 ``--profile`` adds one more serve of each path under ``torch.profiler``
 and prints the device time by kernel and the device's busy share, and
@@ -63,13 +77,15 @@ Each kernel is timed with CUDA events (its wrapper and, where the
 wrapper does more than launch, the kernel alone), beside its plain
 version, the least time the card could take for the same work (bytes
 at 3.35 TB/s; operations at 67 TFLOP/s for float32 inputs and at the
-989 TFLOP/s dense bf16 tensor-core rate for bfloat16 inputs), the rate
-achieved (GB/s for decode, TFLOP/s for flash) and its share of the bound,
+989 TFLOP/s dense bf16 tensor-core rate for bfloat16 inputs, except the
+RWKV scan, whose recurrence is float32 arithmetic in either type), the
+rate achieved (GB/s for decode, TFLOP/s for flash and the scan) and its
+share of the bound,
 and, where one PyTorch call computes the same function, that call's time
 (SDPA for the two attention kernels; used for comparison only).
 
-The second-to-last line is a JSON object with one entry per kernel; the
-card's name and power limit are printed before it; the last line is
+The third-to-last line is a JSON object with one entry per kernel, the
+second-to-last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -125,6 +141,9 @@ ROI_BOUNDS = (1.0, 1.0)         # the mini-SSD's boxes are normalized
 CROP_INDEX_FLOPS = 9            # add, div, sub, mul, add, mul, floor, 2 clamp
 UNCROP_FLOPS = 18               # 2 sub + 4 x (div, mul, add, mul)
 FORWARD_ATOL = 1e-4             # cuDNN vs CPU conv sums; Kalman ULPs
+# the same frames at micro_batch 1 and 5: conv sums in another order
+# (1.2e-7 measured on the CPU), so boxes and scores within 1e-6
+BATCH_ATOL = 1e-6
 IOU_PAIR_FLOPS = 13             # 4 min/max, 2 sub, 2 clamp, mul, add, sub,
                                 # max, div (+ 3 a box for its area)
 SSD300_ANCHORS = 8732           # SSD300's default boxes (the SSD paper);
@@ -172,8 +191,22 @@ DECODE_EDGE_CASES = (
     ("D=36 (scalar loads) G=16 (1,16,1,512,36) bf16", 1, 16, 1, 512, 36,
      torch.bfloat16))
 RWKV_EDGE_CASES = (
+    ("hs=256 T=48 bf16", 1, 2, 48, 256, torch.bfloat16),
     ("hs=128 T=64 bf16", 1, 2, 64, 128, torch.bfloat16),
+    ("hs=36 T=40 bf16", 2, 3, 40, 36, torch.bfloat16),
     ("hs=16 T=48 bf16", 1, 2, 48, 16, torch.bfloat16))
+# flash float32's accuracy margin at qwen3-4b width (not timed): a long
+# cache, held to the plain version at the unchanged tolerance like every
+# case above; and logits |q.k.scale| up to LARGE_LOGIT (q scaled up),
+# measured against the plain version and against float64 but not held
+# to 2e-5: there the float32 rounding of logits near 60 puts the plain
+# version itself farther than 2e-5 from float64 (PERF.md, PR 16)
+FLASH_MARGIN_CASES = (
+    ("qwen3-4b long cache T=256 S=32768 causal f32", 1, 32, 256, 32768,
+     128, True, torch.float32),)
+FLASH_LARGE_LOGITS = ("qwen3-4b large logits T=S=2048 causal f32", 1, 32,
+                      2048, 2048, 128, True, torch.float32)
+LARGE_LOGIT = 60.0
 # the reference's float32 kernel tolerance (tests/test_kernels.py), rtol =
 # atol, five times that for the RWKV state; a bfloat16 case is held to it
 # before its one final rounding (hold_to_plain)
@@ -253,6 +286,31 @@ def nms_cases(rng, ssd_boxes, ssd_scores):
     cases.append(("dense overlap", t(dense),
                   t(rng.uniform(0.4, 1, (2, 160)).astype(np.float32)),
                   dict(NMS_KW, iou_thr=0.7)))
+    # the kernel's own sort against torch.argsort(stable=True): runs of
+    # equal scores across tiles, -0.0 beside 0.0 (they tie: index order),
+    # NaN scores (last, in index order) with no threshold, and the
+    # widest frame the launcher has been run at
+    tb = random_boxes(rng, (4, 160), max_wh=0.15)
+    ts = rng.choice(np.float32([0.9, 0.7, 0.5, 0.45, 0.3]), (4, 160))
+    cases.append(("score ties in runs", t(tb), t(ts), NMS_KW))
+    zs = np.where(rng.uniform(size=(4, 160)) < 0.5, np.float32(-0.0),
+                  np.float32(0.0)).astype(np.float32)
+    zs[:, ::9] = rng.uniform(0.5, 1, zs[:, ::9].shape)
+    for thr in (None, 0.4):
+        cases.append((f"+-0.0 scores, score_thr={thr}", t(tb), t(zs),
+                      dict(NMS_KW, score_thr=thr, stop_at_zero=False,
+                           max_out=64)))
+    ns = rng.uniform(0, 1, (3, 160)).astype(np.float32)
+    ns[rng.uniform(size=ns.shape) < 0.2] = np.nan
+    ns[0, :40] = np.nan
+    cases.append(("NaN scores, no threshold", t(tb[:3]), t(ns),
+                  dict(NMS_KW, score_thr=None, stop_at_zero=False,
+                       max_out=160)))
+    cases.append(("NaN scores, score_thr=0.4", t(tb[:3]), t(ns), NMS_KW))
+    wide = random_boxes(rng, (2, 2400), max_wh=0.05)
+    ws = rng.uniform(0, 1, (2, 2400)).astype(np.float32)
+    ws[:, 1::4] = ws[:, ::4]
+    cases.append(("A=2400", t(wide), t(ws), dict(NMS_KW, max_out=300)))
     return cases
 
 
@@ -473,11 +531,13 @@ def decode_bound_ms(B, H, KV, S, D, dtype):
 def rwkv_bound_ms(B, H, T, hs, dtype):
     """Bytes: r, k, v, w read and out written once in the inputs' type,
     u, s0 and the final state in float32; operations: 7 a state element
-    a step (k v, u kv, S +, r x, sum, w S, + kv)."""
+    a step (k v, u kv, S +, r x, sum, w S, + kv), at the float32 rate
+    whatever the inputs' type: the recurrence is float32 arithmetic (the
+    bf16 results must be the float32 instance's, rounded)."""
     esize = torch.tensor([], dtype=dtype).element_size()
     return _bound(esize * 5 * B * H * T * hs + 4 * (H * hs +
                                                    2 * B * H * hs * hs),
-                  7 * B * H * T * hs * hs, _peak(dtype))
+                  7 * B * H * T * hs * hs, FP32_OPS_PER_S)
 
 
 # ------------------------------------------------------------- phases
@@ -605,16 +665,16 @@ def phase_kernels(params, cfg, anchors, frames):
     ms = cuda_ms(lambda: knms.batched_nms_cuda(b, s, **NMS_KW))
     plain_ms = cuda_ms(lambda: knms.batched_nms_torch(b, s, **NMS_KW),
                        iters=20, warmup=3)
-    bs, ss, order = knms._sorted_candidates(b, s, NMS_KW["score_thr"])
-    bs, ss = bs.contiguous(), ss.contiguous()
-    order = order.to(torch.int32).contiguous()
     keep = torch.empty((8, 32), dtype=torch.int32, device=DEV)
-    count = torch.empty((8,), dtype=torch.int32, device=DEV)
+    valid = torch.empty((8, 32), dtype=torch.bool, device=DEV)
     launch = build.function("nms", "batched_nms_launch", knms._LAUNCH_ARGS)
     stream = torch.cuda.current_stream().cuda_stream
     kernel_ms = cuda_ms(lambda: launch(
-        bs.data_ptr(), ss.data_ptr(), order.data_ptr(), 8, 160, 32,
-        0.5, 1, keep.data_ptr(), count.data_ptr(), stream))
+        b.data_ptr(), s.data_ptr(), 8, 160, 32, 1, NMS_KW["score_thr"],
+        NMS_KW["iou_thr"], 1, keep.data_ptr(), valid.data_ptr(), stream))
+    kp, vp = knms.batched_nms_torch(b, s, **NMS_KW)
+    check(torch.equal(keep, kp) and torch.equal(valid, vp),
+          "NMS kernel alone != the plain version")
     bound, by = nms_bound_ms(b, s, NMS_KW)
     entries["batched_nms"] = dict(
         name="batched_nms", route="cuda",
@@ -893,6 +953,11 @@ def phase_profile(label, eng, frames):
     for dev_us, count, key in rows[:15]:
         print(f"[profile {label}] {dev_us / 1e3:9.3f} ms {count:6d}x  "
               f"{key[:90]}")
+    sorts = [r for r in rows if "sort" in r[2].lower()]
+    print(f"[profile {label}] sort kernels: {len(sorts)} names, "
+          f"{sum(r[1] for r in sorts)} launches, "
+          f"{sum(r[0] for r in sorts) / 1e3:.3f} ms; device events a frame "
+          f"{sum(r[1] for r in rows) / len(frames):.1f}")
 
 
 def profile_calls(label, calls, reps=5):
@@ -1024,6 +1089,42 @@ def phase_parity(params, cfg):
     n_det = sum(int(r.valid.sum()) for r in reps[0]["responses"])
     print(f"[parity] mini-SSD NVR report, cuda == cpu: "
           f"{len(reps[0]['responses'])} responses, {n_det} detections")
+    batch_invariance(params, cfg)
+
+
+def batch_invariance(params, cfg):
+    """The same frames served with micro_batch 1 and 5 on the card (the
+    real mini-SSD, NMS kernel and tracker; cuDNN may pick another
+    algorithm for each batch size): every discrete output equal, boxes
+    and scores within ``BATCH_ATOL``; prints the largest difference."""
+    frames, *_ = nvr_frames(2, 10, rate=50.0)
+    reps = {}
+    for mb in (1, 5):
+        rec = TraceRecorder()
+        reps[mb] = DetectionEngine(
+            cfg=cfg, params=params, n_replicas=2, micro_batch=mb,
+            service_time=0.001, track_and_interpolate=True, recorder=rec,
+            device=DEV).serve(frames)
+        n_mb = sum(1 for e in rec.events if e["kind"] == "stage"
+                   and e["stage"] == "detect")
+        check(n_mb == len(frames) // mb,
+              f"micro_batch={mb}: {n_mb} micro-batches")
+    worst = 0.0
+    for a, b in zip(reps[1]["responses"], reps[5]["responses"]):
+        for f in ("rid", "interpolated", "stream_id", "seq"):
+            check(getattr(a, f) == getattr(b, f), f"mb 1 vs 5: {f}")
+        for f in ("valid", "classes", "track_ids"):
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f"mb 1 vs 5: rid {a.rid} {f}")
+        for f in ("boxes", "scores"):
+            worst = max(worst, float(np.abs(getattr(a, f) -
+                                            getattr(b, f)).max()))
+    n_det = sum(int(r.valid.sum()) for r in reps[1]["responses"])
+    print(f"[parity] micro_batch 1 vs 5 on {DEV}, {len(frames)} frames, "
+          f"{n_det} detections: valid, classes, keep order and track ids "
+          f"equal; largest box/score difference {worst:.3e} (atol "
+          f"{BATCH_ATOL})")
+    check(worst <= BATCH_ATOL, f"micro_batch 1 vs 5 differ by {worst}")
 
 
 def _close(got, want, tol):
@@ -1183,8 +1284,11 @@ def phase_attention(profile=False):
     g = torch.Generator(device=DEV).manual_seed(SEED + 7)
     flash_in = [(c, tuple(_randn(g, (B, H, n, D), c[-1])
                           for n in (T, S, S)))
-                for c in FLASH_CASES + FLASH_EDGE_CASES
+                for c in FLASH_CASES + FLASH_EDGE_CASES + FLASH_MARGIN_CASES
+                + (FLASH_LARGE_LOGITS,)
                 for B, H, T, S, D in [c[1:6]]]
+    c, (q, k, v) = flash_in.pop()
+    large = (c, (q * (LARGE_LOGIT / max_logit(q, k)), k, v))
     decode_in = [(c, (_randn(g, (B, H, D), c[-1]),
                       _randn(g, (B, S, KV, D), c[-1]),
                       _randn(g, (B, S, KV, D), c[-1])))
@@ -1201,6 +1305,7 @@ def phase_attention(profile=False):
     ops.reset_launches()
     t0 = time.perf_counter()
     flash_out = [ops.flash_attention(*x, causal=c[6]) for c, x in flash_in]
+    large_out = ops.flash_attention(*large[1], causal=True)
     decode_out = [ops.decode_attention(*x) for _, x in decode_in]
     rwkv_out = [ops.rwkv_scan(*x) for _, x in rwkv_in]
     torch.cuda.synchronize()
@@ -1209,7 +1314,7 @@ def phase_attention(profile=False):
     print(f"[attention] {len(flash_in)} flash, {len(decode_in)} decode, "
           f"{len(rwkv_in)} rwkv calls in {wall * 1e3:.1f} ms host wall; "
           f"launches {launches}")
-    check(launches["flash_attention"] == len(flash_in)
+    check(launches["flash_attention"] == len(flash_in) + 1
           and launches["decode_attention"] == len(decode_in)
           and launches["rwkv_scan"] == len(rwkv_in),
           f"attention path: one launch a call expected: {launches}")
@@ -1220,6 +1325,7 @@ def phase_attention(profile=False):
 
     worst = {"flash": 0.0, "decode": 0.0, "rwkv": 0.0}
     worst32 = dict(worst)
+    err32_of = {}
     failed = []
     for tag, ins, outs, kernel, plain, tols in (
             ("flash", flash_in, flash_out, kflash.flash_attention_cuda,
@@ -1241,9 +1347,16 @@ def phase_attention(profile=False):
                 lambda *a: plain(*a, **kw), tols)
             worst[tag] = max(worst[tag], err)
             worst32[tag] = max(worst32[tag], err32)
+            err32_of[c[0]] = err32
             if not ok:
                 failed.append(f"{tag} {c[0]}")
     check(not failed, f"kernels != plain versions on {failed}")
+    for c in FLASH_MARGIN_CASES:
+        err = err32_of[c[0]]
+        side = "within" if err <= 1e-5 else "above"
+        print(f"[flash-margin] {c[0]}: float32 max |kernel - plain| "
+              f"{err:.3e}, held to {F32_TOL} ({side} 1e-5)")
+    measure_large_logits(*large, large_out)
     for c, _ in decode_in:
         _, B, H, KV, S, D, _ = c
         n, rows = kdecode.split_rows(B, KV, S, D)
@@ -1361,8 +1474,11 @@ def phase_attention(profile=False):
                            warmup=1)
         bound, by = rwkv_bound_ms(B, H, T, hs, dt)
         print(f"[rwkv] {name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-              f" bound {bound:.4f} ms ({by}); library: none (no PyTorch "
-              f"call computes the RWKV-6 recurrence)")
+              f" bound {bound:.4f} ms ({by}), {bound / ms:.3f} of the bound;"
+              f" {7 * B * H * T * hs * hs / ms * 1e-9:.1f} TFLOP/s; split "
+              f"{krwkv.scan_split(hs)} (columns a CTA, rows a thread); "
+              f"library: none (no PyTorch call computes the RWKV-6 "
+              f"recurrence)")
         if i == 0:
             r, k, v, w, u, s0 = x
             out = torch.empty_like(r)
@@ -1372,8 +1488,11 @@ def phase_attention(profile=False):
             kernel_ms = cuda_ms(lambda: launch(
                 r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), s0.data_ptr(), B, H, T, hs,
-                krwkv._DTYPES[dt], out.data_ptr(), sf.data_ptr(), stream),
-                iters=20, warmup=3)
+                *krwkv.scan_split(hs), krwkv._DTYPES[dt], out.data_ptr(),
+                sf.data_ptr(), stream), iters=20, warmup=3)
+            check(torch.equal(out, rwkv_out[i][0])
+                  and torch.equal(sf, rwkv_out[i][1]),
+                  "rwkv kernel alone != the wrapper's result")
             print(f"[rwkv] {name}: kernel alone {kernel_ms:.4f} ms")
             entries["rwkv_scan"] = dict(
                 name="rwkv_scan", route="cuda",
@@ -1384,7 +1503,98 @@ def phase_attention(profile=False):
                 kernel_only_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by,
                 library_ms=None, shape=name)
+    check_width_limits()
     return launches, entries
+
+
+def flash_f64(q, k, v):
+    """Causal attention in float64, a head at a time: the function with
+    no float32 rounding, to measure both float32 versions against."""
+    T, S, D = q.shape[2], k.shape[2], q.shape[3]
+    seen = (torch.arange(S, device=q.device)[None, :] <=
+            torch.arange(T, device=q.device)[:, None] + (S - T))
+    out = []
+    for h in range(q.shape[1]):
+        s = torch.einsum("btd,bsd->bts", q[:, h].double(),
+                         k[:, h].double()) * D ** -0.5
+        p = torch.softmax(torch.where(seen, s, -1e300), -1)
+        out.append(torch.einsum("bts,bsd->btd", p, v[:, h].double()))
+    return torch.stack(out, 1)
+
+
+def measure_large_logits(c, x, got):
+    """Flash float32 at logits up to ``LARGE_LOGIT``: the kernel against
+    the plain version, and both against float64.  Printed, not held to
+    2e-5: near 60 a logit's float32 ulp is 3.8e-6 and its sum's
+    rounding, in either version, moves the result by more than that
+    (PERF.md, PR 16); both must stay finite and of the right shape."""
+    check(got.shape == x[0].shape and bool(torch.isfinite(got).all()),
+          f"flash {c[0]}: shape/finite")
+    plain = kflash.flash_attention_torch(*x, causal=True)
+    exact = flash_f64(*x)
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max())
+    print(f"[flash-margin] {c[0]}, max |q.k.scale| {max_logit(*x[:2]):.2f}: "
+          f"max |kernel - plain| {err(got, plain):.3e}, |kernel - float64| "
+          f"{err(got, exact):.3e}, |plain - float64| {err(plain, exact):.3e}"
+          f" (measured, not held to {F32_TOL})")
+
+
+def max_logit(q, k):
+    """max |q.k.scale| over the causal pairs of one flash case."""
+    T, S, D = q.shape[2], k.shape[2], q.shape[3]
+    s = torch.einsum("bhtd,bhsd->bhts", q, k) * D ** -0.5
+    seen = (torch.arange(S, device=q.device)[None, :] <=
+            torch.arange(T, device=q.device)[:, None] + (S - T))
+    return float(torch.where(seen, s, 0.0).abs().max())
+
+
+def check_width_limits():
+    """Each CUDA wrapper refuses the first width past its limit with a
+    ValueError, before any launch (the counters do not move): the
+    kernels have no caller at those widths, and the port does not fall
+    back to a plain version on the card."""
+    z = lambda *shape: torch.zeros(shape, device=DEV)  # noqa: E731
+    D, Dd, hs = kflash.MAX_D + 1, kdecode.MAX_D + 1, krwkv.MAX_HS + 1
+    x, q, kv, seq = z(1, 1, 128, D), z(1, 1, Dd), z(1, 512, 1, Dd), z(
+        1, 1, 16, hs)
+    for what, call in (
+            (f"flash_attention_cuda at D={D}",
+             lambda: kflash.flash_attention_cuda(x, x, x)),
+            (f"decode_attention_cuda at D={Dd}",
+             lambda: kdecode.decode_attention_cuda(q, kv, kv)),
+            (f"rwkv_scan_cuda at hs={hs}",
+             lambda: krwkv.rwkv_scan_cuda(seq, seq, seq, seq, z(1, hs),
+                                          z(1, 1, hs, hs)))):
+        before = ops.launches()
+        try:
+            call()
+            raised = None
+        except ValueError as e:
+            raised = e
+        check(raised is not None and ops.launches() == before,
+              f"{what}: no ValueError before launching")
+        print(f"[limits] {what}: ValueError before any launch: {raised}")
+
+
+def tf32_settings():
+    """The legacy TF32 flags and, where this torch has them, the
+    per-operation float32 precisions, as strings (a legacy flag that
+    disagrees with the per-operation one raises when read)."""
+    out = {}
+    for name, obj, attr in (
+            ("cudnn.allow_tf32", torch.backends.cudnn, "allow_tf32"),
+            ("cudnn.conv.fp32_precision",
+             getattr(torch.backends.cudnn, "conv", None), "fp32_precision"),
+            ("cuda.matmul.allow_tf32", torch.backends.cuda.matmul,
+             "allow_tf32"),
+            ("cuda.matmul.fp32_precision", torch.backends.cuda.matmul,
+             "fp32_precision")):
+        try:
+            out[name] = str(getattr(obj, attr))
+        except (AttributeError, RuntimeError) as e:
+            out[name] = f"unreadable ({type(e).__name__})"
+    return out
 
 
 def gpu_line():
@@ -1400,10 +1610,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
               file=sys.stderr)
         return 1
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print("TF32 off: torch.backends.cudnn.allow_tf32 = False, "
-          "torch.backends.cuda.matmul.allow_tf32 = False")
+    print(f"[tf32] process-wide settings as found (left as they are; the "
+          f"port holds its own convs and products in IEEE float32): "
+          f"{tf32_settings()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
     t_start = time.perf_counter()

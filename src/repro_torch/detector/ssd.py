@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device
+from ..device import ieee_float32, resolve_device
 from ..kernels import ops as kops
 
 
@@ -131,9 +131,11 @@ def params_from_numpy(tree, device=None):
     return params_to(p, device)
 
 
+@ieee_float32()
 def ssd_forward(p, cfg: SSDConfig, images):
     """images: (B, S, S, 3) -> (boxes_delta (B,A,4), obj (B,A),
-    cls_logits (B,A,C))."""
+    cls_logits (B,A,C)).  The convolutions run in IEEE float32 whatever
+    the process-wide TF32 settings say (``device.ieee_float32``)."""
     x = images.permute(0, 3, 1, 2)
     feats = []
     for blk in p["backbone"]:

@@ -14,11 +14,12 @@ the contract of the threshold kernels (``EXACT_SOURCES``), not a tuning
 flag: without it nvcc contracts ``area + area - inter`` and
 ``(x1 - x0) * (y1 - y0) + a`` into fused multiply-adds, and an IoU
 compared against a threshold then flips on one ULP relative to the
-reference.  The RWKV scan keeps it too, so that its times stay
-comparable with its first port.  The two attention kernels drop it:
-each compiles its float32 and bfloat16 instances from one template and
-writes its hot sums with explicit ``__fmaf_rn`` / ``__fmul_rn`` /
-``__fadd_rn``, so contraction cannot make the instances differ.
+reference.  The RWKV scan keeps it too: its state must equal the plain
+version's bit for bit, each operation rounded once.  The two attention
+kernels drop it: each compiles its float32 and bfloat16 instances from
+one template and writes its hot sums with explicit ``__fmaf_rn`` /
+``__fmul_rn`` / ``__fadd_rn``, so contraction cannot make the instances
+differ.
 Division and ``expf`` stay IEEE everywhere (no ``--use_fast_math``).
 """
 from __future__ import annotations
@@ -38,8 +39,8 @@ SOURCES = ("nms", "association", "roi", "iou", "flash_attention",
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
-# bit-exact against the reference's operation order (and the scan, kept
-# as first ported): no fused multiply-add
+# bit-exact against the reference's operation order (the scan: its
+# state): no fused multiply-add
 EXACT_SOURCES = ("nms", "association", "roi", "iou", "rwkv_scan")
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ..device import ieee_float32
 from . import build
 
 BLOCK_S = 512
@@ -79,9 +80,11 @@ def _scale(scale, D):
     return D ** -0.5 if scale is None else scale
 
 
+@ieee_float32()
 def decode_attention_torch(q, k, v, *, scale=None):
     """Plain PyTorch version: q (B, H, D), k/v (B, S, KV, D) -> (B, H, D)
-    in q's dtype, computed in float32 and cast once at the end."""
+    in q's dtype, computed in float32 (IEEE products, never TF32:
+    ``device.ieee_float32``) and cast once at the end."""
     B, H, D, S, KV = _check_shapes(q, k, v)
     qg = q.float().reshape(B, KV, H // KV, D) * _scale(scale, D)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from ..device import ieee_float32
 from . import build
 
 BLOCK = 128
@@ -50,9 +51,11 @@ def _scale(scale, D):
     return D ** -0.5 if scale is None else scale
 
 
+@ieee_float32()
 def flash_attention_torch(q, k, v, *, causal=True, scale=None):
     """Plain PyTorch version: q (B, H, T, D), k/v (B, H, S, D) -> (B, H,
-    T, D) in q's dtype, computed in float32 and cast once at the end."""
+    T, D) in q's dtype, computed in float32 (IEEE products, never TF32:
+    ``device.ieee_float32``) and cast once at the end."""
     B, H, T, S, D = _check_shapes(q, k, v)
     qs = q.float() * _scale(scale, D)
     s = torch.einsum("bhtd,bhsd->bhts", qs, k.float())

@@ -18,9 +18,12 @@ of a micro-batch:
 
 ``batched_nms_torch`` is a port of the XLA twin (tiles unrolled, an
 intra-tile suppression fixpoint, a per-frame active gate) and is the
-CPU path.  ``batched_nms_cuda`` sorts with ``torch.argsort(stable=True)``
-on the card, exactly as the reference wrapper sorts outside its kernel,
-and launches one CTA per frame; ``LAUNCHES`` counts its launches.
+CPU path; it thresholds, sorts with ``torch.argsort(stable=True)`` and
+gathers outside the suppression, as the reference wrapper does.
+``batched_nms_cuda`` launches one kernel a call, one CTA per frame,
+which does steps 1-4 itself from the unsorted boxes and scores (its
+rank sort gives ``torch.argsort(-key, stable=True)``'s order, ties,
+-0.0 == 0.0 and NaN included); ``LAUNCHES`` counts its launches.
 """
 from __future__ import annotations
 
@@ -105,8 +108,8 @@ def batched_nms_torch(boxes, scores, *, iou_thr=0.5, score_thr=None,
     return keep[:, :max_out].contiguous(), valid
 
 
-_LAUNCH_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+_LAUNCH_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p]
 
@@ -114,10 +117,11 @@ _LAUNCH_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 def batched_nms_cuda(boxes, scores, *, iou_thr=0.5, score_thr=None,
                      max_out=64, stop_at_zero=False):
     """The CUDA kernel's wrapper: same arguments and results as
-    ``batched_nms_torch``, for tensors on a CUDA device.  Raises on any
-    other device, on a missing kernel library and on a failed launch (a
-    frame of more candidates than one CTA's shared memory holds fails
-    there)."""
+    ``batched_nms_torch``, for tensors on a CUDA device.  Checks its
+    inputs, allocates ``keep`` and ``valid`` and launches the kernel,
+    which thresholds, sorts and suppresses.  Raises on any other device,
+    on a missing kernel library and on a failed launch (a frame of more
+    candidates than one CTA's shared memory holds fails there)."""
     global LAUNCHES
     launch = build.function("nms", "batched_nms_launch", _LAUNCH_ARGS)
     if boxes.device.type != "cuda" or scores.device != boxes.device:
@@ -130,18 +134,18 @@ def batched_nms_cuda(boxes, scores, *, iou_thr=0.5, score_thr=None,
     if A < 1 or max_out < 1:
         raise ValueError(f"need A >= 1 and max_out >= 1, got {A}, "
                          f"{max_out}")
-    bs, ss, order = _sorted_candidates(boxes, scores, score_thr)
-    bs, ss = bs.contiguous(), ss.contiguous()
-    order = order.to(torch.int32).contiguous()
+    # no-ops for the detector's float32 contiguous candidates
+    boxes = boxes.float().contiguous()
+    scores = scores.float().contiguous()
     keep = torch.empty((B, max_out), dtype=torch.int32, device=boxes.device)
-    count = torch.empty((B,), dtype=torch.int32, device=boxes.device)
+    valid = torch.empty((B, max_out), dtype=torch.bool, device=boxes.device)
     if B:
-        err = launch(bs.data_ptr(), ss.data_ptr(), order.data_ptr(), B, A,
-                     max_out, float(iou_thr), int(bool(stop_at_zero)),
-                     keep.data_ptr(), count.data_ptr(),
+        err = launch(boxes.data_ptr(), scores.data_ptr(), B, A, max_out,
+                     int(score_thr is not None),
+                     0.0 if score_thr is None else float(score_thr),
+                     float(iou_thr), int(bool(stop_at_zero)),
+                     keep.data_ptr(), valid.data_ptr(),
                      torch.cuda.current_stream(boxes.device).cuda_stream)
         build.check(err, "batched_nms_launch")
         LAUNCHES += 1
-    valid = (torch.arange(max_out, device=boxes.device)[None, :] <
-             count[:, None])
     return keep, valid

@@ -13,6 +13,12 @@ in float32, whatever the inputs' type.  ``out`` is returned in r's type,
 the final state in float32.  The state is never rounded between steps:
 ``chunk_t`` only sets the reference's precondition ``T % min(chunk_t,
 T) == 0``.  ``LAUNCHES`` counts the CUDA wrapper's kernel launches.
+
+The CUDA kernel cuts the state by ``scan_split``: a CTA per (batch,
+head, block of columns), a thread per (column, slice of rows), each
+thread's strip of the state in registers for the whole sequence, the
+slices' partial sums of ``out`` added in slice order.  The cut depends
+on hs alone, never on the type.
 """
 from __future__ import annotations
 
@@ -24,7 +30,19 @@ from . import build
 
 CHUNK_T = 256
 LAUNCHES = 0     # kernel launches made by rwkv_scan_cuda
-MAX_HS = 128     # the kernel keeps a state column of hs floats a thread
+ROWS = 8         # state rows a CUDA thread keeps (csrc/rwkv_scan.cu kRows)
+MAX_HS = 512     # scan_split's widest cut: 8 columns x 64 slices of 8 rows
+
+
+def scan_split(hs):
+    """``(cols, rows)``: the CUDA kernel's cut of the (hs, hs) state,
+    ``cols`` columns a CTA and ``rows`` rows a thread (a thread keeps one
+    column of its slice of rows), so a CTA runs ``cols * ceil(hs /
+    rows)`` threads (at most 512).  The partial sums of ``out``
+    go by slices of ``rows`` rows, added in slice order.  Reads the width
+    only, so a float32 call on widened bf16 inputs sums in the same
+    order."""
+    return (16 if hs <= 256 else 8), ROWS
 
 
 def _check_shapes(r, k, v, w, u, s0, chunk_t):
@@ -60,8 +78,8 @@ def rwkv_scan_torch(r, k, v, w, u, s0, *, chunk_t: int = CHUNK_T):
     return torch.stack(outs, 2).to(r.dtype), S
 
 
-_LAUNCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_LAUNCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p] * 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -90,8 +108,9 @@ def rwkv_scan_cuda(r, k, v, w, u, s0, *, chunk_t: int = CHUNK_T):
     out = torch.empty_like(r)
     s_final = torch.empty((B, H, hs, hs), dtype=torch.float32, device=dev)
     if B * H and hs:
+        cols, rows = scan_split(hs)
         err = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                     uf.data_ptr(), sf.data_ptr(), B, H, T, hs,
+                     uf.data_ptr(), sf.data_ptr(), B, H, T, hs, cols, rows,
                      _DTYPES[r.dtype], out.data_ptr(), s_final.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "rwkv_scan_launch")

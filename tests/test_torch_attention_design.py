@@ -43,7 +43,8 @@ BLOCK_K = 64
 # the float32 instance's products, smallest first: (Q piece, K piece) and
 # (P piece, V piece); the bf16 instance keeps those of its one piece
 QK_TERMS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
-PV_TERMS = ((0, 2), (1, 1), (0, 1), (1, 0), (0, 0))
+PV_TERMS = ((2, 0), (0, 2), (1, 1), (0, 1), (1, 0), (0, 0))  # (2, 0): a
+# third piece of P, which the kernel leaves out (p_pieces=2)
 # (B, H, KV, S, D) of the reference's tests/test_kernels.py and of the
 # port's tests/test_torch_attention.py
 REFERENCE_DECODE_SHAPES = ((1, 8, 2, 512, 64), (2, 16, 16, 1024, 64),
@@ -185,6 +186,50 @@ def test_flash_one_piece_of_p_is_refused():
     got = flash_emulated(q, k, v, True, 3, p_pieces=1)
     assert not torch.allclose(got, want, rtol=smoke.F32_TOL,
                               atol=smoke.F32_TOL)
+
+
+def _exact_attention(q, k, v):
+    """Causal attention in float64: the function itself, with no float32
+    rounding of the logits."""
+    T, S, D = q.shape[2], k.shape[2], q.shape[3]
+    s = torch.einsum("bhtd,bhsd->bhts", q.double(), k.double()) * D ** -0.5
+    seen = torch.arange(S)[None, :] <= torch.arange(T)[:, None] + (S - T)
+    return torch.softmax(torch.where(seen, s, -1e300), -1) @ v.double()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flash_large_logit_gap_is_the_float32_logits(seed):
+    """Where a third bf16 piece of P helps and where it does not.  At
+    random logits it takes the emulated kernel 5x or more nearer the
+    float64 attention (P's 2^-16 residual is what PR 15's two pieces
+    left).  At logits up to 60 (qwen3-4b's D = 128, q scaled up) the
+    emulated kernel is within 2e-5 of the float64 attention with two
+    pieces, the float32 plain version is farther from it, and a third
+    piece does not narrow the gap between kernel and plain version: that
+    gap is the logits' float32 rounding (|s| ~ 60, ulp 3.8e-6)."""
+    q, k, v = _randn(seed, (1, 2, 512, 128), (1, 2, 512, 128),
+                     (1, 2, 512, 128))
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max())
+    two = flash_emulated(q, k, v, True, 3, p_pieces=2)
+    three = flash_emulated(q, k, v, True, 3, p_pieces=3)
+    exact = _exact_attention(q, k, v)
+    assert err(three, exact) * 5 <= err(two, exact)
+    q = q * (smoke.LARGE_LOGIT / float(_exact_attention_logit_max(q, k)))
+    two = flash_emulated(q, k, v, True, 3, p_pieces=2)
+    three = flash_emulated(q, k, v, True, 3, p_pieces=3)
+    plain = flash_attention_torch(q, k, v, causal=True)
+    exact = _exact_attention(q, k, v)
+    assert err(two, exact) <= smoke.F32_TOL
+    assert err(plain, exact) > err(two, exact)
+    assert err(three, plain) >= 0.95 * err(two, plain)
+
+
+def _exact_attention_logit_max(q, k):
+    T, S, D = q.shape[2], k.shape[2], q.shape[3]
+    s = torch.einsum("bhtd,bhsd->bhts", q.double(), k.double()) * D ** -0.5
+    seen = torch.arange(S)[None, :] <= torch.arange(T)[:, None] + (S - T)
+    return torch.where(seen, s, 0.0).abs().max()
 
 
 @pytest.mark.parametrize("B,H,T,S,D,causal", FLASH_EDGE)

@@ -217,3 +217,16 @@ def test_ptxas_summary_names_each_instance():
         "decode_split_kernel<f32, 8, 16>: 221 registers, 16 bytes static "
         "smem, spills 12/4 bytes",
         "nms_kernel: 32 registers, 16 bytes static smem, spills 0/0 bytes"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv_bound_counts_float32_operations_in_either_type(dtype):
+    """The scan's recurrence is float32 arithmetic whatever its inputs'
+    type, so its operations bound is 7 B H T hs^2 at the float32 rate
+    for bf16 too: 0.1402 ms at rwkv6-3b (B=4, H=40, T=2048, hs=64), not
+    the 0.0642 ms bytes bound the bf16 tensor-core rate would leave."""
+    bound, by = smoke.rwkv_bound_ms(4, 40, 2048, 64, dtype)
+    assert by == "operations"
+    assert bound == pytest.approx(7 * 4 * 40 * 2048 * 64 ** 2 /
+                                  smoke.FP32_OPS_PER_S * 1e3)
+    assert round(bound, 4) == 0.1402

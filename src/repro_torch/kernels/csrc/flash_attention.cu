@@ -19,14 +19,16 @@
 //   every score).  Float32 inputs keep the terms lo.hi, hi.lo, mid.mid,
 //   mid.hi, hi.mid, hi.hi, in that order (smallest first); the dropped
 //   ones are below 2^-24 of a product.
-// * P is float32 and never rounded to bf16: it goes in as two pieces P0 +
-//   P1 (2^-16 of p left over, within the float32 tolerance; one piece
-//   leaves 2^-9, which the tolerance refuses).  Float32 inputs take
-//   P0.Vlo, P1.Vmid, P0.Vmid, P1.Vhi, P0.Vhi, in that order.
+// * P is float32 and never rounded to bf16: it goes in as three pieces
+//   P0 + P1 + P2 (at most 2^-27 of p left over, below float32's own
+//   rounding; two pieces leave 2^-18, 7e-6 at T = S = 2048 against the
+//   2e-5 float32 tolerance, and one leaves 2^-9, which the tolerance
+//   refuses).  Float32 inputs take P2.Vhi, P0.Vlo, P1.Vmid, P0.Vmid,
+//   P1.Vhi, P0.Vhi, in that order.
 // * Bf16 inputs are their own hi piece.  They run the same sequence with
 //   the products of the absent pieces left out: hi.hi for the scores,
-//   P1.V and P0.V for the output.  On float32 inputs widened from bf16
-//   every piece but hi is exactly 0, the float32 instance's extra
+//   P2.V, P1.V and P0.V for the output.  On float32 inputs widened from
+//   bf16 every piece but hi is exactly 0, the float32 instance's extra
 //   products add 0 to the accumulator (D = 0 . B + C returns C, which
 //   chip_smoke checks on the card first), and its nonzero products meet
 //   the accumulator in the bf16 instance's order.  The key tile, the
@@ -234,14 +236,16 @@ __device__ __forceinline__ void split(float x, bf16 (&pc)[NP]) {
     x = __fsub_rn(x, __bfloat162float(pc[i]));
   }
 }
-// P0 and P1 of a pair of probabilities, packed as one A-fragment register
+// P0, P1 and P2 of a pair of probabilities, each packed as one
+// A-fragment register
 __device__ __forceinline__ void split_pair(float x, float y, uint32_t& p0,
-                                           uint32_t& p1) {
-  bf16 px[2], py[2];
-  split<2>(x, px);
-  split<2>(y, py);
+                                           uint32_t& p1, uint32_t& p2) {
+  bf16 px[3], py[3];
+  split<3>(x, px);
+  split<3>(y, py);
   p0 = pack(px[0], py[0]);
   p1 = pack(px[1], py[1]);
+  p2 = pack(px[2], py[2]);
 }
 
 // n <= 8 values of src (n < 8 at the edge of D) as float32
@@ -527,17 +531,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < DP / 2; ++i)
       o[i] = __fmul_rn(o[i], corr[(i >> 1) & 1]);
 
-    // O += P V: P's two pieces as register A fragments, 16 keys a step
+    // O += P V: P's three pieces as register A fragments, 16 keys a step
     // (the A fragment of keys 16 kk.. is the scores' n8 tiles 2 kk and
     // 2 kk + 1); V N-major from shared memory, keys 16 kk.. at 2 KB a step
-    uint32_t p0[4][4], p1[4][4];
+    uint32_t p0[4][4], p1[4][4], p2[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const float* a = sc + 8 * kk;
-      split_pair(a[0], a[1], p0[kk][0], p1[kk][0]);
-      split_pair(a[2], a[3], p0[kk][1], p1[kk][1]);
-      split_pair(a[4], a[5], p0[kk][2], p1[kk][2]);
-      split_pair(a[6], a[7], p0[kk][3], p1[kk][3]);
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        split_pair(a[2 * f], a[2 * f + 1], p0[kk][f], p1[kk][f], p2[kk][f]);
     }
     wgmma_fence();
 #pragma unroll
@@ -546,6 +549,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int p = 0; p < NP; ++p)
         vd[p] = gmma_desc(vb_s + p * TB + kk * 16 * 128, kBlockBytes);
+      wgmma_rs<DP>(o, p2[kk], vd[0]);     // P2.Vhi
       if constexpr (NP == 3) {
         wgmma_rs<DP>(o, p0[kk], vd[2]);   // P0.Vlo
         wgmma_rs<DP>(o, p1[kk], vd[1]);   // P1.Vmid

@@ -11,7 +11,7 @@ rests on:
   every shape the smoke and the reference's tests use;
 * a torch emulation of each kernel's arithmetic (bf16 pieces, products
   exact in float32, float32 sums in the kernels' order, 64-key tiles, P in
-  two pieces; decode's splits merged in order 0, 1, ...) is within the
+  three pieces; decode's splits merged in order 0, 1, ...) is within the
   smoke's float32 tolerance of the plain versions at the smoke's edge
   shapes, which is how the piece counts were chosen;
 * for inputs widened from bf16 every piece but the first is exactly 0, so
@@ -43,8 +43,7 @@ BLOCK_K = 64
 # the float32 instance's products, smallest first: (Q piece, K piece) and
 # (P piece, V piece); the bf16 instance keeps those of its one piece
 QK_TERMS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
-PV_TERMS = ((2, 0), (0, 2), (1, 1), (0, 1), (1, 0), (0, 0))  # (2, 0): a
-# third piece of P, which the kernel leaves out (p_pieces=2)
+PV_TERMS = ((2, 0), (0, 2), (1, 1), (0, 1), (1, 0), (0, 0))
 # (B, H, KV, S, D) of the reference's tests/test_kernels.py and of the
 # port's tests/test_torch_attention.py
 REFERENCE_DECODE_SHAPES = ((1, 8, 2, 512, 64), (2, 16, 16, 1024, 64),
@@ -65,7 +64,7 @@ def pieces(x, n):
     return out
 
 
-def flash_emulated(q, k, v, causal, n_pieces, p_pieces=2):
+def flash_emulated(q, k, v, causal, n_pieces, p_pieces=3):
     """The flash kernel's arithmetic: ``n_pieces`` = 3 is its float32
     instance, 1 its bf16 instance (inputs are their own hi piece); P in
     ``p_pieces`` pieces."""
@@ -167,8 +166,8 @@ FLASH_EDGE = [c[1:7] for c in smoke.FLASH_EDGE_CASES] + [
 
 @pytest.mark.parametrize("B,H,T,S,D,causal", FLASH_EDGE)
 def test_flash_pieces_within_f32_tolerance(B, H, T, S, D, causal):
-    """Three pieces of Q, K and V with six Q.K terms, P in two pieces with
-    five P.V terms: within the smoke's float32 tolerance of the plain
+    """Three pieces of Q, K and V with six Q.K terms, P in three pieces
+    with six P.V terms: within the smoke's float32 tolerance of the plain
     version on float32 inputs (blind rows included)."""
     q, k, v = _randn(3, (B, H, T, D), (B, H, S, D), (B, H, S, D))
     got = flash_emulated(q, k, v, causal, 3)
@@ -180,7 +179,7 @@ def test_flash_pieces_within_f32_tolerance(B, H, T, S, D, causal):
 
 def test_flash_one_piece_of_p_is_refused():
     """P rounded to bf16 (one piece) leaves ~2^-9 of p: the float32
-    tolerance refuses it, which is why P goes in as two pieces."""
+    tolerance refuses it, which is why P goes in as pieces (three)."""
     q, k, v = _randn(4, (1, 2, 256, 64), (1, 2, 256, 64), (1, 2, 256, 64))
     want = flash_attention_torch(q, k, v, causal=True)
     got = flash_emulated(q, k, v, True, 3, p_pieces=1)
@@ -199,16 +198,16 @@ def _exact_attention(q, k, v):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_flash_large_logit_gap_is_the_float32_logits(seed):
-    """Where a third bf16 piece of P helps and where it does not.  At
+    """Where the third bf16 piece of P helps and where it does not.  At
     random logits it takes the emulated kernel 5x or more nearer the
-    float64 attention (P's 2^-16 residual is what PR 15's two pieces
-    left).  At logits up to 60 (qwen3-4b's D = 128, q scaled up) the
+    float64 attention (two pieces leave 2^-18 of p, three 2^-27).  At logits up to 60 (qwen3-4b's D = 128, q scaled up) the
     emulated kernel is within 2e-5 of the float64 attention with two
     pieces, the float32 plain version is farther from it, and a third
     piece does not narrow the gap between kernel and plain version: that
     gap is the logits' float32 rounding (|s| ~ 60, ulp 3.8e-6)."""
     q, k, v = _randn(seed, (1, 2, 512, 128), (1, 2, 512, 128),
                      (1, 2, 512, 128))
+
     def err(a, b):
         return float((a.double() - b.double()).abs().max())
     two = flash_emulated(q, k, v, True, 3, p_pieces=2)

@@ -15,8 +15,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    the assignment's ``match``, the ROI crops and the uncropped boxes
    must be exactly equal (tolerance 0); the NMS cases include the
    kernel's own candidate sort at score ties, -0.0 beside 0.0, NaN
-   scores and A=2400.  Times the kernel, its plain version, and works
-   out the least time the card could take;
+   scores and A=2400; the crop cases a one-frame batch, rows that are not
+   16-byte multiples, one-pixel windows and 70,000 windows; the uncrop
+   cases rois read through partial broadcasts and the serve's views, and
+   more than ``roi.MAX_ROI_RANK`` leading dims refused before launch.
+   Times the kernel, its plain version, and works out the least time the
+   card could take; crop and uncrop also by the profiler's device time a
+   call at B=1 and B=8, where each call must launch its one kernel;
 3. serve an NVR trace (4 cameras x 32 frames of ``SyntheticVideo``
    pixels), with the process-wide TF32 settings left at PyTorch's
    defaults (printed; the port holds its convs in IEEE float32 itself),
@@ -69,9 +74,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    ValueError one past it, on CUDA tensors, with no launch counted.
 
 ``--profile`` adds one more serve of each path under ``torch.profiler``
-and prints the device time by kernel and the device's busy share, and
-the kernels that the timed flash and decode calls and their SDPA
-yardsticks launch.
+and prints the device time by kernel and the device's busy share (and
+the ROI kernels' time a launch, with the device op run just before each
+uncrop, which must not be a copy), and the kernels that the timed flash
+and decode calls and their SDPA yardsticks launch.
 
 Each kernel is timed with CUDA events (its wrapper and, where the
 wrapper does more than launch, the kernel alone), beside its plain
@@ -92,6 +98,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -371,6 +378,17 @@ def crop_cases(rng, frames_8):
     cases.append(("pixel-boundary windows 60x60 C=12",
                   t(rng.random((4, 60, 60, 3)).astype(np.float32)),
                   t(edges.astype(np.float32)), 12))
+    cases.append(("serve B=1 R=4 64x64x3 C=64 (one-frame micro-batch)",
+                  frames_8[:1], t(roi_windows(rng, 1, 4)), 64))
+    cases.append(("C=13 ch=3: rows of 39 floats, not 16-byte multiples",
+                  frames_8, t(roi_windows(rng, 8, 4)), 13))
+    # each window a quarter pixel inside pixel k: every output reads k
+    lo = (rng.integers(0, 64, (8, 4, 2)) + 0.5) / 64
+    tiny = np.concatenate([lo, lo + 0.25 / 64], -1).astype(np.float32)
+    cases.append(("windows of one source pixel", frames_8, t(tiny), 64))
+    cases.append(("70000 windows C=4 16x16x1 (grid axes)",
+                  t(rng.random((17500, 16, 16, 1)).astype(np.float32)),
+                  t(roi_windows(rng, 17500, 4)), 4))
     return cases
 
 
@@ -389,6 +407,22 @@ def uncrop_cases(rng):
         rois = roi_windows(rng, 1, int(np.prod(rlead))).reshape(
             rlead + (4,))
         cases.append((name, t(boxes), t(rois), bounds, C))
+    # rois read through their broadcast: a partial broadcast, the serve's
+    # view of its (n, R, 4) windows over M boxes (also sliced from a wider
+    # tensor, so no stride is a multiple of 4), one roi for every box
+    boxes = rng.uniform(0, 96, (3, 5, 7, 4)).astype(np.float32)
+    cases.append(("rois (1,5,1) against boxes (3,5,7)", t(boxes),
+                  t(roi_windows(rng, 1, 5).reshape(1, 5, 1, 4)),
+                  (123.4, 55.5), 96))
+    boxes = t(rng.uniform(0, 64, (8, 4, 32, 4)).astype(np.float32))
+    cases.append(("serve view norm[:, :, None, :]", boxes,
+                  t(roi_windows(rng, 8, 4))[:, :, None, :], ROI_BOUNDS, 64))
+    wide = np.zeros((8, 4, 6), np.float32)
+    wide[:, :, 1:5] = roi_windows(rng, 8, 4)
+    cases.append(("serve view sliced from (8,4,6)", boxes,
+                  t(wide)[:, :, 1:5][:, :, None, :], (640, 480), 64))
+    cases.append(("rois (4,) for every box", boxes,
+                  t(roi_windows(rng, 1, 1).reshape(4)), (1920, 1080), 64))
     return cases
 
 
@@ -559,7 +593,6 @@ def ptxas_summary(log):
     """One line per kernel of an ``nvcc -Xptxas=-v`` log: its name and
     template arguments, registers, static shared memory and spill
     bytes."""
-    import re
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*?\d+([a-z_]+kernel)"
@@ -755,6 +788,7 @@ def roi_kernels(rng, frames_8):
               f"crop_resize kernel != plain version on {name}")
         worst = max(worst, err)
     _, imgs, rois, C = crop_cases(rng, frames_8)[0]
+    crop_in = (imgs, rois, C)
     ms = cuda_ms(lambda: kroi.crop_resize_cuda(imgs, rois, out_size=C))
     plain_ms = cuda_ms(lambda: kroi.crop_resize_torch(imgs, rois,
                                                       out_size=C),
@@ -762,9 +796,16 @@ def roi_kernels(rng, frames_8):
     out = torch.empty((8, 4, C, C, 3), dtype=torch.float32, device=DEV)
     launch = build.function("roi", "crop_resize_launch", kroi._CROP_ARGS)
     stream = torch.cuda.current_stream().cuda_stream
+    split = kroi.crop_split(8, 4, C, 3)
     kernel_ms = cuda_ms(lambda: launch(imgs.data_ptr(), rois.data_ptr(), 8,
-                                       4, 64, 64, 3, C, out.data_ptr(),
-                                       stream))
+                                       4, 64, 64, 3, C, *split,
+                                       out.data_ptr(), stream))
+    check(torch.equal(out, kroi.crop_resize_torch(imgs, rois, out_size=C)),
+          "crop kernel alone != the plain version")
+    for B in (1, 8):
+        rows, threads = kroi.crop_split(B, 4, C, 3)
+        print(f"[crop] split B={B} R=4 C=64: {rows} rows and {threads} "
+              f"threads a CTA, {B * 4 * -(-C // rows)} CTAs")
     bound, by = crop_bound_ms(imgs, rois, C)
     entries["crop_resize"] = dict(
         name="crop_resize", route="cuda",
@@ -803,15 +844,18 @@ def roi_kernels(rng, frames_8):
     ms = cuda_ms(lambda: kroi.uncrop_boxes_cuda(boxes, rois, **kw))
     plain_ms = cuda_ms(lambda: kroi.uncrop_boxes_torch(boxes, rois, **kw),
                        iters=50, warmup=5)
-    rfull = rois.expand(boxes.shape).contiguous()
+    r, lead, strides = kroi.uncrop_layout(boxes.shape, rois)
+    layout = kroi.uncrop_launch_layout(lead, strides)
     out = torch.empty_like(boxes)
     N = boxes.numel() // 4
     launch = build.function("roi", "uncrop_boxes_launch",
                             kroi._UNCROP_ARGS)
-    kernel_ms = cuda_ms(lambda: launch(boxes.data_ptr(), rfull.data_ptr(),
-                                       N, float(C), float(bounds[0]),
-                                       float(bounds[1]), out.data_ptr(),
-                                       stream))
+    kernel_ms = cuda_ms(lambda: launch(boxes.data_ptr(), r.data_ptr(), N,
+                                       len(lead), layout, float(C),
+                                       float(bounds[0]), float(bounds[1]),
+                                       out.data_ptr(), stream))
+    check(torch.equal(out, kroi.uncrop_boxes_torch(boxes, rois, **kw)),
+          "uncrop kernel alone != the plain version")
     bound, by = uncrop_bound_ms(boxes, rois)
     entries["uncrop_boxes"] = dict(
         name="uncrop_boxes", route="cuda",
@@ -831,7 +875,68 @@ def roi_kernels(rng, frames_8):
         print(f"[uncrop-sweep] B={B} N={bb.numel() // 4}: wrapper "
               f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound "
               f"{uncrop_bound_ms(bb, rb)[0]:.2e} ms")
+    deep = torch.zeros((1,) * (kroi.MAX_ROI_RANK + 1) + (4,), device=DEV)
+    before = ops.launches()
+    try:
+        kroi.uncrop_boxes_cuda(deep, rois[0, 0, 0], **kw)
+        raised = None
+    except ValueError as e:
+        raised = e
+    check(raised is not None and ops.launches() == before,
+          "uncrop_boxes_cuda: no ValueError before launching at rank "
+          f"{kroi.MAX_ROI_RANK + 1}")
+    print(f"[limits] uncrop_boxes_cuda at {kroi.MAX_ROI_RANK + 1} leading "
+          f"dims: ValueError before any launch: {raised}")
+    # a row of 4000 x 16 floats: its gather map passes a CTA's shared memory
+    wide = torch.zeros((1, 8, 8, 16), device=DEV)
+    before = ops.launches()
+    try:
+        kroi.crop_resize_cuda(wide, torch.zeros((1, 1, 4), device=DEV),
+                              out_size=4000)
+        raised = None
+    except ValueError as e:
+        raised = e
+    check("shared memory" in str(raised) and ops.launches() == before,
+          "crop_resize_cuda: no ValueError before launching a C=4000 ch=16 "
+          "crop")
+    print(f"[limits] crop_resize_cuda at C=4000 ch=16: ValueError before "
+          f"any launch: {raised}")
+    roi_device_times(entries, *crop_in, uncrop_cases(rng), kw)
     return entries
+
+
+def roi_device_times(entries, imgs, rois, C, uncrop, kw):
+    """Device time a call of crop and uncrop at the serve's shapes, B=1
+    and B=8 (the uncrop on the serve's view of its rois), from the
+    profiler: the CUDA-event loops above are host-bound near 0.004 ms a
+    call.  The uncrop also at B=8 on the view sliced from (8, 4, 6),
+    whose roi rows do not start on 16 bytes.  Each call must launch its
+    one kernel and nothing else."""
+    _, boxes, view, _, _ = next(c for c in uncrop
+                                if c[0].startswith("serve view norm"))
+    _, _, sliced, _, _ = next(c for c in uncrop
+                              if c[0].startswith("serve view sliced"))
+    calls = []
+    for B in (1, 8):
+        calls += [(f"crop B={B}", "::crop_kernel",
+                   lambda B=B: kroi.crop_resize_cuda(imgs[:B], rois[:B],
+                                                     out_size=C)),
+                  (f"uncrop B={B}", "::uncrop_kernel",
+                   lambda B=B: kroi.uncrop_boxes_cuda(boxes[:B], view[:B],
+                                                      **kw))]
+    calls.append(("uncrop B=8 sliced view", "::uncrop_kernel",
+                  lambda: kroi.uncrop_boxes_cuda(boxes, sliced, **kw)))
+    reps = 20
+    rows = profile_calls("roi", [(n, fn) for n, _, fn in calls], reps=reps)
+    for name, kernel, _ in calls:
+        got = rows[name]
+        check(len(got) == 1 and kernel in got[0][2] and got[0][1] == reps,
+              f"{name}: a call launches {[(r[1], r[2]) for r in got]}, not "
+              f"one {kernel}")
+        entry = entries["crop_resize" if name.startswith("crop")
+                        else "uncrop_boxes"]
+        entry.setdefault("device_ms", {})[name.split(" ", 1)[1]] = (
+            got[0][0] / reps / 1e3)
 
 
 def phase_serve(params, cfg, frames):
@@ -953,6 +1058,16 @@ def phase_profile(label, eng, frames):
     for dev_us, count, key in rows[:15]:
         print(f"[profile {label}] {dev_us / 1e3:9.3f} ms {count:6d}x  "
               f"{key[:90]}")
+    for dev_us, count, key in rows:
+        if "::crop_kernel" in key or "::uncrop_kernel" in key:
+            print(f"[profile {label}] {_short(key)}: "
+                  f"{dev_us / count / 1e3:.4f} ms a launch over {count}")
+    before = _device_ops_before(prof, "::uncrop_kernel")
+    if before:
+        print(f"[profile {label}] device ops just before each "
+              f"uncrop_kernel on its stream: {before}")
+        check(not any("direct_copy" in k for k in before),
+              f"{label}: a copy kernel runs beside uncrop_kernel: {before}")
     sorts = [r for r in rows if "sort" in r[2].lower()]
     print(f"[profile {label}] sort kernels: {len(sorts)} names, "
           f"{sum(r[1] for r in sorts)} launches, "
@@ -963,19 +1078,52 @@ def phase_profile(label, eng, frames):
 def profile_calls(label, calls, reps=5):
     """``reps`` calls of each ``(name, fn)`` under ``torch.profiler``:
     device time a call by kernel, to name what each call launches (ours:
-    one kernel; SDPA: the library's own)."""
-    from torch.profiler import ProfilerActivity, profile
+    one kernel; SDPA: the library's own).  Returns each name's
+    ``_device_rows``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    out = {}
     for name, fn in calls:
         fn()
         torch.cuda.synchronize()
+        # a warm-up step is traced and dropped before the step that counts:
+        # a trace's first launches can go unrecorded (one of 20 was lost
+        # once), and the callers hold the counts exactly
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        for dev_us, count, key in _device_rows(prof)[:4]:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        out[name] = _device_rows(prof)
+        for dev_us, count, key in out[name][:4]:
             print(f"[profile {label}] {name}: {dev_us / reps / 1e3:.4f} ms "
                   f"a call, {count // reps}x  {key[:80]}")
+    return out
+
+
+def _short(key):
+    """A kernel's name without its namespace and parameter list (the
+    innermost name called with arguments), else the key."""
+    m = re.search(r"(\w+(?:<[^<>()]*>)?)\(", key)
+    return m.group(1) if m else key
+
+
+def _device_ops_before(prof, needle):
+    """{name: count} of the device op that ran just before each launch
+    of the kernel named by ``needle``, on that kernel's stream."""
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    streams = {e.device_resource_id for e in evs if needle in e.name}
+    evs = sorted((e for e in evs if e.device_resource_id in streams),
+                 key=lambda e: e.time_range.start)
+    out = {}
+    for a, b in zip(evs, evs[1:]):
+        if needle in b.name:
+            out[_short(a.name)] = out.get(_short(a.name), 0) + 1
+    return out
 
 
 def _device_rows(prof):
@@ -986,6 +1134,8 @@ def _device_rows(prof):
         # device-side events only: an aten op's row repeats the time of
         # the kernels it launched
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.key.startswith("ProfilerStep"):     # a schedule's step span
             continue
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))

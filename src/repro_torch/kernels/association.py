@@ -78,18 +78,16 @@ def greedy_assign_cuda(t_boxes, d_boxes, t_mask, d_mask, t_cls, d_cls,
             or d_mask.shape != (B, D) or d_cls.shape != (B, D)):
         raise ValueError("greedy_assign_cuda: inconsistent shapes "
                          f"{[tuple(a.shape) for a in args]}")
-    tb = t_boxes.float().contiguous()
-    db = d_boxes.float().contiguous()
-    tm = t_mask.bool().contiguous()
-    dm = d_mask.bool().contiguous()
-    tc = t_cls.to(torch.int32).contiguous()
-    dc = d_cls.to(torch.int32).contiguous()
+    tb = build.operand(t_boxes, torch.float32, align16=True)
+    db = build.operand(d_boxes, torch.float32, align16=True)
+    tm, dm = (build.operand(m, torch.bool) for m in (t_mask, d_mask))
+    tc, dc = (build.operand(c, torch.int32) for c in (t_cls, d_cls))
     match = torch.empty((B, T), dtype=torch.int32, device=dev)
     if B and T and D:
         err = launch(tb.data_ptr(), db.data_ptr(), tm.data_ptr(),
                      dm.data_ptr(), tc.data_ptr(), dc.data_ptr(), B, T, D,
                      float(iou_thr), match.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     build.stream(dev))
         build.check(err, "greedy_assign_launch")
         LAUNCHES += 1
     else:

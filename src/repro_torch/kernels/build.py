@@ -21,6 +21,10 @@ one template and writes its hot sums with explicit ``__fmaf_rn`` /
 ``__fmul_rn`` / ``__fadd_rn``, so contraction cannot make the instances
 differ.
 Division and ``expf`` stay IEEE everywhere (no ``--use_fast_math``).
+
+Every wrapper takes its launcher (``function``), its operands
+(``operand``) and the current stream's handle (``stream``) from here,
+and hands the launcher's error code to ``check``.
 """
 from __future__ import annotations
 
@@ -30,7 +34,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -44,6 +50,10 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXACT_SOURCES = ("nms", "association", "roi", "iou", "rwkv_scan")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# (library, symbol) -> (the library it came from, its argtypes, the
+# launcher with them set); an entry counts only while _libs still holds
+# that library
+_fns: Dict[Tuple[str, str], Tuple[ctypes.CDLL, tuple, ctypes._CFuncPtr]] = {}
 
 
 def flags(name: str) -> tuple:
@@ -113,15 +123,46 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C launcher ``symbol`` of kernel library ``name``, building
     the libraries first if needed.  Every launcher returns the CUDA
-    error code of its launch (0 = success)."""
+    error code of its launch (0 = success).  The launcher is looked up
+    and given its ``argtypes`` once; later calls return it from a cache
+    that a reset of ``_libs`` empties.  Raises ``ValueError`` when a
+    later call asks for other ``argtypes`` than the first."""
+    argtypes = tuple(argtypes)
+    hit = _fns.get((name, symbol))
+    if hit is not None and _libs.get(name) is hit[0]:
+        if hit[1] != argtypes:
+            raise ValueError(f"{symbol}: argtypes {argtypes} differ from "
+                             f"the {hit[1]} it was loaded with")
+        return hit[2]
     if name not in _libs:
         for n, p in build().items():
             if n not in _libs:
                 _libs[n] = ctypes.CDLL(str(p))
-    fn = getattr(_libs[name], symbol)
+    lib = _libs[name]
+    fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    _fns[(name, symbol)] = (lib, argtypes, fn)
     return fn
+
+
+def operand(t: torch.Tensor, dtype=None, align16: bool = False):
+    """``t`` as a launcher's operand: of ``dtype`` (its own where None),
+    contiguous, and starting on 16 bytes where ``align16`` (the kernel
+    loads it in 16-byte words).  A tensor that already is goes through
+    untouched, with no dispatcher call."""
+    if dtype is not None and t.dtype != dtype:
+        t = t.to(dtype)
+    if not t.is_contiguous():
+        t = t.contiguous()
+    return t.clone() if align16 and t.data_ptr() % 16 else t
+
+
+def stream(dev: torch.device) -> int:
+    """The handle of PyTorch's current stream on CUDA device ``dev``,
+    read without building a ``torch.cuda.Stream`` object (which takes
+    longer on the host than the small kernels take on the card)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def check(err: int, what: str) -> None:

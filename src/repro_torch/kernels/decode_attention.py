@@ -117,7 +117,7 @@ def decode_attention_cuda(q, k, v, *, scale=None):
                          f"{v.dtype}")
     if D > MAX_D:
         raise ValueError(f"decode_attention_cuda: D {D} > {MAX_D}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (build.operand(x) for x in (q, k, v))
     out = torch.empty_like(q)
     if B * H and D:
         n_split, rows = split_rows(B, KV, S, D)
@@ -129,7 +129,7 @@ def decode_attention_cuda(q, k, v, *, scale=None):
                      D, float(_scale(scale, D)), _DTYPES[q.dtype], rows,
                      n_split, part.data_ptr(), tickets.data_ptr(),
                      out.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     build.stream(dev))
         build.check(err, "decode_attention_launch")
         LAUNCHES += 1
     return out

@@ -96,14 +96,14 @@ def flash_attention_cuda(q, k, v, *, causal=True, scale=None):
                          f"{v.dtype}")
     if D > MAX_D:
         raise ValueError(f"flash_attention_cuda: D {D} > {MAX_D}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (build.operand(x) for x in (q, k, v))
     out = torch.empty_like(q)
     if B * H * T and D:
         # ctypes rounds the scale to float32, as q.float() * scale does
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, H, T, S,
                      D, float(_scale(scale, D)), int(bool(causal)),
                      _DTYPES[q.dtype], out.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     build.stream(dev))
         build.check(err, "flash_attention_launch")
         LAUNCHES += 1
     return out

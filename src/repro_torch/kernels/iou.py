@@ -62,12 +62,12 @@ def iou_matrix_cuda(a, b):
         raise ValueError(f"iou_matrix_cuda: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)} are not (N, 4) and (M, 4)")
     N, M = a.shape[0], b.shape[0]
-    af = a.float().contiguous()
-    bf = b.float().contiguous()
+    af = build.operand(a, torch.float32)
+    bf = build.operand(b, torch.float32)
     out = torch.empty((N, M), dtype=torch.float32, device=dev)
     if N and M:
         err = launch(af.data_ptr(), bf.data_ptr(), N, M, out.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     build.stream(dev))
         build.check(err, "iou_matrix_launch")
         LAUNCHES += 1
     return out

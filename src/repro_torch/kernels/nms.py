@@ -134,9 +134,8 @@ def batched_nms_cuda(boxes, scores, *, iou_thr=0.5, score_thr=None,
     if A < 1 or max_out < 1:
         raise ValueError(f"need A >= 1 and max_out >= 1, got {A}, "
                          f"{max_out}")
-    # no-ops for the detector's float32 contiguous candidates
-    boxes = boxes.float().contiguous()
-    scores = scores.float().contiguous()
+    boxes = build.operand(boxes, torch.float32, align16=True)
+    scores = build.operand(scores, torch.float32)
     keep = torch.empty((B, max_out), dtype=torch.int32, device=boxes.device)
     valid = torch.empty((B, max_out), dtype=torch.bool, device=boxes.device)
     if B:
@@ -145,7 +144,7 @@ def batched_nms_cuda(boxes, scores, *, iou_thr=0.5, score_thr=None,
                      0.0 if score_thr is None else float(score_thr),
                      float(iou_thr), int(bool(stop_at_zero)),
                      keep.data_ptr(), valid.data_ptr(),
-                     torch.cuda.current_stream(boxes.device).cuda_stream)
+                     build.stream(boxes.device))
         build.check(err, "batched_nms_launch")
         LAUNCHES += 1
     return keep, valid

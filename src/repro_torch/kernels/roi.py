@@ -23,12 +23,15 @@ Both compute what the reference package's ``kernels/roi.py`` computes
   ``x0 + t * (x1 - x0)`` into a fused multiply-add and differ from
   both by at most one float32 ULP of the parent frame scale.
 
-``CROP_LAUNCHES`` and ``UNCROP_LAUNCHES`` count the two CUDA wrappers'
-kernel launches.
+``crop_split`` and ``uncrop_layout`` are the kernels' cut of the crop's
+output and view of the rois, worked out from shapes in Python so that
+the CPU tests can hold them.  ``CROP_LAUNCHES`` and ``UNCROP_LAUNCHES``
+count the two CUDA wrappers' kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -84,29 +87,79 @@ def uncrop_boxes_torch(boxes, rois, *, bounds, crop_size: int):
     ], -1)
 
 
-def _aligned(t):
-    """``t``, copied where its data does not start on 16 bytes (the
-    kernels load float4)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+CROP_MIN_CTAS = 128        # about one wave on the H100's 132 SMs
+CROP_TILE_FLOATS = 4096    # 16 KB of output a CTA at most, unless one
+                           # row is more
+CROP_MAX_SMEM = 232448     # bytes of shared memory a CTA can opt into on
+                           # the H100 (227 KB): one row's gather map and
+                           # the tile's source rows, 4 bytes each
+MAX_ROI_RANK = 8           # leading dims of the boxes (csrc/roi.cu)
 
 
-def _check_cuda(what, *tensors):
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+@functools.lru_cache(maxsize=256)
+def crop_split(B: int, R: int, C: int, ch: int):
+    """``(rows, threads)``: the CUDA crop kernel's cut of its output.  A
+    CTA takes ``rows`` consecutive output rows of one window (the grid
+    is (B * R windows, ceil(C / rows) row tiles)) and runs ``threads``
+    threads, a warp a row at a time.  ``rows`` is the largest power of
+    two that keeps at least ``CROP_MIN_CTAS`` CTAs, at most
+    ``CROP_TILE_FLOATS`` output floats a CTA and at most C rows; 1 where
+    none does.  Reads the shape only."""
+    windows = B * R
+    rows = 1
+    while (2 * rows <= C and 2 * rows * C * ch <= CROP_TILE_FLOATS
+           and windows * -(-C // (2 * rows)) >= CROP_MIN_CTAS):
+        rows *= 2
+    return rows, 32 * min(rows, 8)
+
+
+def uncrop_layout(boxes_shape, rois):
+    """The uncrop kernel's view of the rois against boxes of shape
+    ``boxes_shape`` (..., 4): ``(r, sizes, strides)``, where ``r`` is
+    ``rois`` as float32 (the same tensor where it already is), ``sizes``
+    the boxes' leading sizes and ``strides`` the strides of
+    ``r.expand(boxes_shape)`` along them in floats, 0 along a broadcast
+    dim, worked out from the shapes without building the view.  Where
+    that view's last dim is not unit-stride, ``r`` is the broadcast
+    made contiguous instead.  Raises ``ValueError`` on more than
+    ``MAX_ROI_RANK`` leading dims and on rois that do not broadcast to
+    the boxes."""
+    shape = tuple(boxes_shape)
+    if len(shape) - 1 > MAX_ROI_RANK:
+        raise ValueError(f"uncrop_boxes_cuda: boxes {shape} have more "
+                         f"than {MAX_ROI_RANK} leading dims")
+    r = rois if rois.dtype == torch.float32 else rois.float()
+    rshape, rstride = r.shape, r.stride()
+    k = len(shape) - len(rshape)      # dims the broadcast puts in front
+    if k < 0 or any(m != n and m != 1 for m, n in zip(rshape, shape[k:])):
+        raise ValueError(f"uncrop_boxes_cuda: rois {tuple(rois.shape)} do "
+                         f"not broadcast to boxes {shape}")
+    strides = tuple(rstride[d - k] if d >= k and rshape[d - k] == n else 0
+                    for d, n in enumerate(shape))
+    if strides[-1] != 1:
+        r = r.expand(shape).contiguous()
+        strides = r.stride()
+    return r, shape[:-1], strides[:-1]
+
+
+def _check_cuda(what, a, b):
+    dev = a.device
+    if dev.type != "cuda" or b.device != dev:
         raise ValueError(f"{what} takes CUDA tensors on one device, got "
-                         f"{[str(t.device) for t in tensors]}")
+                         f"{[str(a.device), str(b.device)]}")
     return dev
 
 
-_CROP_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+_CROP_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 + [
     ctypes.c_void_p, ctypes.c_void_p]
 
 
 def crop_resize_cuda(images, rois, *, out_size: int):
     """The CUDA kernel's wrapper: same arguments and result as
-    ``crop_resize_torch``, for tensors on one CUDA device.  Raises on
-    any other device, on a missing kernel library and on a failed
-    launch."""
+    ``crop_resize_torch``, for tensors on one CUDA device, cut by
+    ``crop_split``.  Raises on any other device, before any launch on a
+    row whose gather map would pass ``CROP_MAX_SMEM``, on a missing
+    kernel library and on a failed launch."""
     global CROP_LAUNCHES
     launch = build.function("roi", "crop_resize_launch", _CROP_ARGS)
     dev = _check_cuda("crop_resize_cuda", images, rois)
@@ -114,47 +167,80 @@ def crop_resize_cuda(images, rois, *, out_size: int):
     R = rois.shape[1]
     C = int(out_size)
     if (rois.shape != (B, R, 4) or min(H, W, ch, C) < 1
-            or C * C * ch >= 2 ** 31):
+            or C * C * ch >= 2 ** 31 or B * R >= 2 ** 31):
         raise ValueError(f"crop_resize_cuda: images {tuple(images.shape)},"
                          f" rois {tuple(rois.shape)}, out_size {C}")
-    img = images.float().contiguous()
-    r = _aligned(rois.float().contiguous())
+    rows, threads = crop_split(B, R, C, ch)
+    if 4 * (C * ch + rows) > CROP_MAX_SMEM:
+        raise ValueError(f"crop_resize_cuda: a row of {C} x {ch} floats "
+                         f"needs a gather map of more than {CROP_MAX_SMEM}"
+                         " bytes of shared memory")
+    img = build.operand(images, torch.float32)
+    r = build.operand(rois, torch.float32, align16=True)
     out = torch.empty((B, R, C, C, ch), dtype=torch.float32, device=dev)
     if B * R:
-        err = launch(img.data_ptr(), r.data_ptr(), B, R, H, W, ch, C,
-                     out.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+        err = launch(img.data_ptr(), r.data_ptr(), B, R, H, W, ch, C, rows,
+                     threads, out.data_ptr(), build.stream(dev))
         build.check(err, "crop_resize_launch")
         CROP_LAUNCHES += 1
     return out
 
 
+# the uncrop launcher's layout: MAX_ROI_RANK leading sizes (1 past the
+# rank), then as many roi strides (0 past it)
+_LAYOUT = ctypes.c_int64 * (2 * MAX_ROI_RANK)
+_LAYOUTS = {}   # (boxes shape, rois shape, rois strides) -> launch args
 _UNCROP_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                ctypes.c_void_p, ctypes.c_void_p]
+                ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
+                ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                ctypes.c_void_p]
+
+
+def uncrop_launch_layout(sizes, strides):
+    """``uncrop_layout``'s sizes and strides as the launcher's array."""
+    pad = MAX_ROI_RANK - len(sizes)
+    return _LAYOUT(*sizes, *(1,) * pad, *strides, *(0,) * pad)
+
+
+def _uncrop_launch_args(shape, rois):
+    """``(r, rank, layout)`` for the launcher: ``uncrop_layout`` and its
+    array, kept per layout of float32 rois that need no copy, so a
+    serve's repeated shapes skip the work (at most 64 layouts)."""
+    key = (shape, rois.shape, rois.stride())
+    hit = _LAYOUTS.get(key) if rois.dtype == torch.float32 else None
+    if hit is not None:
+        return rois, hit[0], hit[1]
+    r, sizes, strides = uncrop_layout(shape, rois)
+    args = len(sizes), uncrop_launch_layout(sizes, strides)
+    if r is rois:
+        if len(_LAYOUTS) >= 64:
+            _LAYOUTS.clear()
+        _LAYOUTS[key] = args
+    return (r,) + args
 
 
 def uncrop_boxes_cuda(boxes, rois, *, bounds, crop_size: int):
     """The CUDA kernel's wrapper: same arguments and result as
-    ``uncrop_boxes_torch``, for tensors on one CUDA device.  The rois'
-    broadcast against the boxes is materialized (4 floats a box) so the
-    kernel reads one roi per box.  Raises on any other device, on a
-    missing kernel library and on a failed launch."""
+    ``uncrop_boxes_torch``, for tensors on one CUDA device.  The kernel
+    reads the rois through their broadcast against the boxes
+    (``uncrop_layout``): one launch a call, no copy of float32 rois.
+    Raises on any other device, on a layout ``uncrop_layout`` refuses,
+    on a missing kernel library and on a failed launch."""
     global UNCROP_LAUNCHES
     launch = build.function("roi", "uncrop_boxes_launch", _UNCROP_ARGS)
     dev = _check_cuda("uncrop_boxes_cuda", boxes, rois)
-    if boxes.shape[-1] != 4:
+    if boxes.shape[-1] != 4 or boxes.numel() // 4 >= 2 ** 31:
         raise ValueError(f"uncrop_boxes_cuda: boxes {tuple(boxes.shape)}"
-                         " are not (..., 4)")
-    b = _aligned(boxes.float().contiguous())
-    r = _aligned(rois.float().expand(b.shape).contiguous())
+                         " are not (..., 4) with fewer than 2**31 boxes")
+    b = build.operand(boxes, torch.float32, align16=True)
+    r, rank, layout = _uncrop_launch_args(b.shape, rois)
     out = torch.empty_like(b)
     N = b.numel() // 4
     if N:
         # ctypes rounds each scale to float32, as the plain version does
-        err = launch(b.data_ptr(), r.data_ptr(), N, float(crop_size),
-                     float(bounds[0]), float(bounds[1]), out.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+        err = launch(b.data_ptr(), r.data_ptr(), N, rank, layout,
+                     float(crop_size), float(bounds[0]), float(bounds[1]),
+                     out.data_ptr(), build.stream(dev))
         build.check(err, "uncrop_boxes_launch")
         UNCROP_LAUNCHES += 1
     return out

@@ -102,9 +102,9 @@ def rwkv_scan_cuda(r, k, v, w, u, s0, *, chunk_t: int = CHUNK_T):
     B, H, T, hs = r.shape
     if hs > MAX_HS:
         raise ValueError(f"rwkv_scan_cuda: hs {hs} > {MAX_HS}")
-    r, k, v, w = (x.contiguous() for x in (r, k, v, w))
-    uf = u.float().contiguous()
-    sf = s0.float().contiguous()
+    r, k, v, w = (build.operand(x) for x in (r, k, v, w))
+    uf = build.operand(u, torch.float32)
+    sf = build.operand(s0, torch.float32)
     out = torch.empty_like(r)
     s_final = torch.empty((B, H, hs, hs), dtype=torch.float32, device=dev)
     if B * H and hs:
@@ -112,7 +112,7 @@ def rwkv_scan_cuda(r, k, v, w, u, s0, *, chunk_t: int = CHUNK_T):
         err = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                      uf.data_ptr(), sf.data_ptr(), B, H, T, hs, cols, rows,
                      _DTYPES[r.dtype], out.data_ptr(), s_final.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     build.stream(dev))
         build.check(err, "rwkv_scan_launch")
         LAUNCHES += 1
     return out, s_final

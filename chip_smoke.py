@@ -20,8 +20,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    cases rois read through partial broadcasts and the serve's views, and
    more than ``roi.MAX_ROI_RANK`` leading dims refused before launch.
    Times the kernel, its plain version, and works out the least time the
-   card could take; crop and uncrop also by the profiler's device time a
-   call at B=1 and B=8, where each call must launch its one kernel;
+   card could take; the assignment (B=1, 4, 8), crop and uncrop (B=1, 8)
+   also by the profiler's device time a call (``[profile assign]``,
+   ``[profile roi]``), where each call must launch its one kernel;
 3. serve an NVR trace (4 cameras x 32 frames of ``SyntheticVideo``
    pixels), with the process-wide TF32 settings left at PyTorch's
    defaults (printed; the port holds its convs in IEEE float32 itself),
@@ -46,8 +47,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    8 frames of mini-SSD candidates (A=160), counted from zero; both
    must equal ``ops.batched_nms`` over the 8 frames and the same calls
    on ``device="cpu"`` exactly, and the IoU kernel must equal its plain
-   version exactly at 160x160, 256x256, 300x17, 1x1 and SSD300's
-   8732x8732 anchors;
+   version exactly at 160x160, 256x256, 300x17, 1x1, SSD300's
+   8732x8732 anchors, and rows that do not start on 16 bytes (161x157,
+   300x333) or a single row or column (1x5, 5x1); its device time a
+   call at 160x160 and 8732x8732 (``[profile iou]``, one kernel a call);
 7. the attention and scan kernels at the widths of models the repo
    supports, counted from zero: ``ops.flash_attention`` at qwen3-4b
    (H=32, D=128; T=S=2048 causal in bf16 and f32, a cached prefix
@@ -71,13 +74,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    to the bf16 results bit for bit and be within that tolerance of the
    plain version's float32 result.  Last, each width limit that remains
    (flash D <= 128, decode D <= 256, the scan hs <= 512) must raise a
-   ValueError one past it, on CUDA tensors, with no launch counted.
+   ValueError one past it, on CUDA tensors, with no launch counted;
+8. after the profile passes, the three IoU kernels on boxes with NaN,
+   +-inf and -0.0 coordinates (``[nan]``): the IoU matrix, NMS (the
+   example of a NaN box beside two overlapping ones, and mini frames
+   with such boxes) and the assignment (a NaN in a live pair, in a masked
+   slot, infinite sides, -0.0 corners; iou_thr -1, 0, 0.3, 1), each
+   equal to its plain version with NaN at the same places
+   (``same_nan``); every case runs before the phase fails on any.
 
 ``--profile`` adds one more serve of each path under ``torch.profiler``
 and prints the device time by kernel and the device's busy share (and
-the ROI kernels' time a launch, with the device op run just before each
-uncrop, which must not be a copy), and the kernels that the timed flash
-and decode calls and their SDPA yardsticks launch.
+the time a launch of the NMS, assignment and ROI kernels, with the device
+op run just before each uncrop, which must not be a copy), and the
+kernels that the timed flash and decode calls and their SDPA yardsticks
+launch.
 
 Each kernel is timed with CUDA events (its wrapper and, where the
 wrapper does more than launch, the kernel alone), beside its plain
@@ -151,12 +162,18 @@ FORWARD_ATOL = 1e-4             # cuDNN vs CPU conv sums; Kalman ULPs
 # the same frames at micro_batch 1 and 5: conv sums in another order
 # (1.2e-7 measured on the CPU), so boxes and scores within 1e-6
 BATCH_ATOL = 1e-6
+# hand-written kernels whose time a launch --profile prints for a serve
+SERVE_KERNELS = ("nms_kernel", "assign_kernel", "crop_kernel",
+                 "uncrop_kernel")
 IOU_PAIR_FLOPS = 13             # 4 min/max, 2 sub, 2 clamp, mul, add, sub,
                                 # max, div (+ 3 a box for its area)
 SSD300_ANCHORS = 8732           # SSD300's default boxes (the SSD paper);
                                 # ssd300 is a core/executor.py MODEL_PROFILES entry
+# the last four: rows that do not start on 16 bytes (M % 4 != 0) and a
+# single row or column
 IOU_SIZES = ((160, 160), (256, 256), (300, 17), (1, 1),
-             (SSD300_ANCHORS, SSD300_ANCHORS))
+             (SSD300_ANCHORS, SSD300_ANCHORS), (161, 157), (300, 333),
+             (1, 5), (5, 1))
 # (name, B, H, T, S, D, causal, dtype): qwen3-4b's 32 heads of 128
 # (src/repro/configs/qwen3_4b.py); the first is the timed shape
 FLASH_CASES = (
@@ -764,6 +781,15 @@ def phase_kernels(params, cfg, anchors, frames):
             *sub, iou_thr=ASSIGN_THR), iters=20, warmup=3)
         print(f"[assign-sweep] B={B} T=64 D=32: kernel {t_k:.4f} ms, "
               f"plain {t_p:.4f} ms")
+    # device time a call (the event loops above are host-bound): one
+    # camera, the engine's four, eight
+    calls = [(f"B={B} T=64 D=32", "::assign_kernel",
+              lambda sub=sub: kassoc.greedy_assign_cuda(
+                  *sub, iou_thr=ASSIGN_THR))
+             for B, sub in ((1, tuple(a[:1] for a in args)), (4, args),
+                            (8, tuple(torch.cat([a, a]) for a in args)))]
+    entries["greedy_assign"]["device_ms"] = device_ms_a_call("assign",
+                                                             calls)
     entries.update(roi_kernels(rng, imgs))
     crop, unc = crop_cases(rng, imgs)[0], uncrop_cases(rng)[0]
     check_counters(b, s, args, crop[1:], unc[1:])
@@ -910,8 +936,7 @@ def roi_device_times(entries, imgs, rois, C, uncrop, kw):
     and B=8 (the uncrop on the serve's view of its rois), from the
     profiler: the CUDA-event loops above are host-bound near 0.004 ms a
     call.  The uncrop also at B=8 on the view sliced from (8, 4, 6),
-    whose roi rows do not start on 16 bytes.  Each call must launch its
-    one kernel and nothing else."""
+    whose roi rows do not start on 16 bytes."""
     _, boxes, view, _, _ = next(c for c in uncrop
                                 if c[0].startswith("serve view norm"))
     _, _, sliced, _, _ = next(c for c in uncrop
@@ -926,17 +951,39 @@ def roi_device_times(entries, imgs, rois, C, uncrop, kw):
                                                       **kw))]
     calls.append(("uncrop B=8 sliced view", "::uncrop_kernel",
                   lambda: kroi.uncrop_boxes_cuda(boxes, sliced, **kw)))
-    reps = 20
-    rows = profile_calls("roi", [(n, fn) for n, _, fn in calls], reps=reps)
-    for name, kernel, _ in calls:
-        got = rows[name]
-        check(len(got) == 1 and kernel in got[0][2] and got[0][1] == reps,
-              f"{name}: a call launches {[(r[1], r[2]) for r in got]}, not "
-              f"one {kernel}")
+    for name, ms in device_ms_a_call("roi", calls).items():
         entry = entries["crop_resize" if name.startswith("crop")
                         else "uncrop_boxes"]
-        entry.setdefault("device_ms", {})[name.split(" ", 1)[1]] = (
-            got[0][0] / reps / 1e3)
+        entry.setdefault("device_ms", {})[name.split(" ", 1)[1]] = ms
+
+
+def device_ms_a_call(label, calls, reps=20):
+    """Device time a launch of each ``(name, kernel, fn)`` from the
+    profiler (``[profile <label>]`` lines), each call launching its one
+    ``kernel`` and nothing else: the launch counters must rise by one a
+    call, and the profiler must record that kernel and no other.  The
+    profiler can drop some of a trace's kernel records (as few as 1 of
+    20 recorded, once), so the time is the recorded kernel time over the
+    recorded launches.  Returns ``{name: ms}``."""
+    out = {}
+    for name, kernel, fn in calls:
+        before = ops.launches()
+        got = profile_calls(label, [(name, fn)], reps=reps)[name]
+        after = ops.launches()
+        grew = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+        # profile_calls makes 2 * reps + 1 calls (one untraced, a
+        # dropped warm-up step, the counted step)
+        check(list(grew.values()) == [2 * reps + 1] and len(got) == 1
+              and kernel in got[0][2],
+              f"{name}: launches counted {grew} for {2 * reps + 1} calls, "
+              f"kernels recorded {[(r[1], r[2]) for r in got]}; not one "
+              f"{kernel} a call")
+        out[name] = got[0][0] / got[0][1] / 1e3
+        print(f"[profile {label}] {name}: {out[name]:.4f} ms a launch, one "
+              f"{kernel[2:]} a call ({2 * reps + 1} calls counted, "
+              f"{got[0][1]} of the last {reps} recorded)")
+    return out
 
 
 def phase_serve(params, cfg, frames):
@@ -1059,7 +1106,7 @@ def phase_profile(label, eng, frames):
         print(f"[profile {label}] {dev_us / 1e3:9.3f} ms {count:6d}x  "
               f"{key[:90]}")
     for dev_us, count, key in rows:
-        if "::crop_kernel" in key or "::uncrop_kernel" in key:
+        if any(re.search(rf"::{k}[<(]", key) for k in SERVE_KERNELS):
             print(f"[profile {label}] {_short(key)}: "
                   f"{dev_us / count / 1e3:.4f} ms a launch over {count}")
     before = _device_ops_before(prof, "::uncrop_kernel")
@@ -1403,6 +1450,9 @@ def phase_seed_nms(params, cfg, anchors, frames):
                   warmup=1)
     print(f"[iou-sweep] {N}x{N}: wrapper {t_k:.4f} ms, plain {t_p:.4f} ms, "
           f"bound {iou_bound_ms(N, N)[0]:.4f} ms ({iou_bound_ms(N, N)[1]})")
+    device_ms = device_ms_a_call("iou", [
+        ("160x160", "::iou_kernel", lambda: kiou.iou_matrix_cuda(a, c)),
+        (f"{N}x{N}", "::iou_kernel", lambda: kiou.iou_matrix_cuda(big, big))])
     entry = dict(
         name="iou_matrix", route="cuda",
         source="src/repro_torch/kernels/csrc/iou.cu",
@@ -1410,9 +1460,119 @@ def phase_seed_nms(params, cfg, anchors, frames):
         max_abs_err=worst, ms=ms, kernel_only_ms=kernel_ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
         shape="160x160 (one frame's candidates)",
-        ssd300_ms=t_k, ssd300_plain_ms=t_p,
+        ssd300_ms=t_k, ssd300_plain_ms=t_p, device_ms=device_ms,
         ssd300_bound_ms=iou_bound_ms(N, N)[0])
     return launches, entry
+
+
+# boxes with a NaN, +-inf or -0.0 coordinate (an overflowed box decode or
+# Kalman prediction): the first three are a NaN box and two boxes whose
+# IoU with it is NaN in the reference
+NAN, INF = float("nan"), float("inf")
+ODD_BOXES = np.float32([
+    [NAN, 0, 10, 10], [1, 1, 9, 9], [0, 0, 10, 10], [-INF, 0, INF, 10],
+    [INF, INF, INF, INF], [0, 0, INF, 10], [-0.0, -0.0, 0.0, 0.0],
+    [-0.0, -0.0, 10, 10], [NAN, NAN, NAN, NAN], [0, -INF, 10, -INF],
+    [5, 5, 5, NAN], [-INF, -INF, -INF, -INF]])
+
+
+def same_nan(got, want):
+    """Equal shapes and types, NaN at the same places and equal values
+    elsewhere (a NaN's sign and payload aside; -0.0 == 0.0)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    return torch.equal(gn, wn) and torch.equal(got[~gn], want[~wn])
+
+
+def odd_frames(rng, B, A, span=100.0):
+    """(B, A, 4) random boxes with one box in six replaced by one of
+    ``ODD_BOXES`` scaled to ``span``."""
+    b = random_boxes(rng, (B, A), span=span, max_wh=0.3)
+    pick = rng.uniform(size=(B, A)) < 1 / 6
+    b[pick] = ODD_BOXES[rng.integers(0, len(ODD_BOXES), int(pick.sum()))] * (
+        span / 10)
+    return b
+
+
+def phase_nan():
+    """The three IoU kernels on boxes with NaN, +-inf and -0.0
+    coordinates, held exactly (NaN-aware: ``same_nan``) to their plain
+    versions, which carry NaN through every max and min as the reference
+    does.  A frame whose live assignment cost holds a NaN commits no
+    match; NMS does not suppress with a NaN IoU.  Every case is run and
+    printed before the phase fails on any that differ."""
+    differ = []
+    rng = np.random.default_rng(SEED + 18)
+    a = _t(np.concatenate([ODD_BOXES, random_boxes(rng, (25,), 10.0)]))
+    c = _t(np.concatenate([random_boxes(rng, (17,), 10.0), ODD_BOXES]))
+    for name, x, y in (("IoU example", a[:1], a[1:3]), ("37x29", a, c),
+                       ("29x37", c, a), ("37x37", a, a)):
+        got, want = kiou.iou_matrix_cuda(x, y), kiou.iou_matrix_torch(x, y)
+        torch.cuda.synchronize()
+        print(f"[nan] iou {name}: equal={same_nan(got, want)}, NaN "
+              f"{int(want.isnan().sum())} of {want.numel()}"
+              + (f", {got.tolist()}" if want.numel() < 4 else ""))
+        if not same_nan(got, want):
+            differ.append(f"iou {name}")
+    check(bool(kiou.iou_matrix_torch(a[:1], a[1:3]).isnan().all()),
+          "plain IoU of the NaN box is not NaN")
+
+    ex = _t(np.float32([[NAN, 0, 10, 10], [0, 0, 10, 10], [1, 1, 10, 10],
+                        [50, 50, 60, 60]])[None])
+    exs = _t(np.float32([[0.9, 0.8, 0.7, 0.6]]))
+    nms_in = [("example", ex, exs, dict(iou_thr=0.5, max_out=4))]
+    ob = _t(odd_frames(rng, 4, 160, span=1.0))
+    os_ = _t(rng.uniform(0, 1, (4, 160)).astype(np.float32))
+    nms_in += [("A=160 odd boxes", ob, os_, NMS_KW),
+               ("A=160 odd boxes no thr", ob, os_,
+                dict(NMS_KW, score_thr=None, stop_at_zero=False,
+                     max_out=160))]
+    for name, b, s, kw in nms_in:
+        kk, vk = knms.batched_nms_cuda(b, s, **kw)
+        kp, vp = knms.batched_nms_torch(b, s, **kw)
+        torch.cuda.synchronize()
+        ok = torch.equal(kk, kp) and torch.equal(vk, vp)
+        print(f"[nan] nms {name}: keep/valid equal={ok}, valid "
+              f"{vp.sum(-1).tolist()}"
+              + (f", keep {kk[0].tolist()}" if name == "example" else ""))
+        if not ok:
+            differ.append(f"nms {name}")
+    check(knms.batched_nms_torch(ex, exs, iou_thr=0.5, max_out=4)[0][
+        0, :3].tolist() == [0, 1, 3], "plain NMS example keep != [0, 1, 3]")
+
+    # frame 0: the NaN box in a live pair; 1: in a masked track slot;
+    # 2: tracks with an infinite side (IoU 0 against finite boxes); 3: a
+    # -0.0 track box on a detection equal to it but for the zeros
+    B, T, D = 4, 64, 32
+    tb = random_boxes(rng, (B, T), span=100.0, max_wh=0.4)
+    db = tb[:, rng.integers(0, T, D)] + rng.normal(0, 3, (B, D, 4)).astype(
+        np.float32)
+    tm = rng.uniform(size=(B, T)) < 0.8
+    dm = rng.uniform(size=(B, D)) < 0.9
+    tc = rng.integers(0, 2, (B, T)).astype(np.int32)
+    dc = rng.integers(0, 2, (B, D)).astype(np.int32)
+    tb[:2, 0] = ODD_BOXES[0]
+    tm[0, 0], tm[1, 0], dm[0, 0], dc[0, 0] = True, False, True, tc[0, 0]
+    tb[2, ::5] = ODD_BOXES[3] * 10
+    tb[2, 1::5] = ODD_BOXES[5] * 10
+    tb[3, :4], db[3, :4] = ODD_BOXES[7] * 10, ODD_BOXES[2] * 10
+    tm[3, :4], dm[3, :4], dc[3, :4] = True, True, tc[3, :4]
+    args = tuple(_t(x) for x in (tb, db, tm, dm, tc, dc))
+    for thr in (-1.0, 0.0, ASSIGN_THR, 1.0):
+        mk = kassoc.greedy_assign_cuda(*args, iou_thr=thr)
+        mp = kassoc.greedy_assign_torch(*args, iou_thr=thr)
+        torch.cuda.synchronize()
+        ok = torch.equal(mk, mp)
+        print(f"[nan] assign B=4 T=64 D=32 iou_thr={thr}: match equal={ok}, "
+              f"matches a frame {(mp >= 0).sum(-1).tolist()}")
+        if not ok:
+            differ.append(f"assign iou_thr={thr}")
+        check(not bool((mp[0] >= 0).any()),
+              "plain assignment committed a match beside a live NaN")
+    check(not differ, f"kernel != plain version on: {', '.join(differ)}")
 
 
 def _randn(g, shape, dtype=torch.float32):
@@ -1797,6 +1957,7 @@ def main() -> int:
             cfg=cfg, params=params, n_replicas=2, service_time=SERVICE_S,
             track_and_interpolate=True, device=DEV), frames)
         phase_profile("cascade", cascade_engine(params, cfg, DEV), frames)
+    phase_nan()
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(gpu_line())

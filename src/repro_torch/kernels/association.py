@@ -9,7 +9,12 @@ boxes against detection boxes, set to -1 where a track slot or a
 detection is masked out or the classes differ; then at most
 ``min(T, D)`` greedy steps, each committing the global maximum (first
 in row-major order among equal values) and retiring its row and column,
-until the best remaining pair falls below ``iou_thr``.
+until the best remaining pair is not ``>= iou_thr``.  A NaN cost (a box
+with a NaN coordinate in a live pair) is the largest value for the
+argmax, as ``jnp.argmax`` and ``torch.argmax`` have it, and fails the
+threshold: such a frame commits no match.  The kernel builds the cost
+and a cache of each row's first maximum with all its warps, then runs
+the greedy steps on one warp (``csrc/association.cu``).
 ``LAUNCHES`` counts the CUDA kernel's launches.
 """
 from __future__ import annotations
@@ -61,16 +66,13 @@ def greedy_assign_cuda(t_boxes, d_boxes, t_mask, d_mask, t_cls, d_cls,
     """The CUDA kernel's wrapper: same arguments and result as
     ``greedy_assign_torch``, for tensors on one CUDA device.  Raises on
     any other device, on a missing kernel library and on a failed
-    launch (a (T, D) cost matrix larger than one CTA's shared memory
-    fails there)."""
+    launch (the launcher refuses a (T, D) cost matrix of more than 48 KB,
+    T * D > 12288)."""
     global LAUNCHES
     launch = build.function("association", "greedy_assign_launch",
                             _LAUNCH_ARGS)
-    dev = t_boxes.device
     args = (t_boxes, d_boxes, t_mask, d_mask, t_cls, d_cls)
-    if dev.type != "cuda" or any(a.device != dev for a in args):
-        raise ValueError("greedy_assign_cuda takes CUDA tensors on one "
-                         f"device, got {[str(a.device) for a in args]}")
+    dev = build.cuda_device("greedy_assign_cuda", *args)
     B, T, _ = t_boxes.shape
     D = d_boxes.shape[1]
     if (t_boxes.shape != (B, T, 4) or d_boxes.shape != (B, D, 4)

@@ -22,9 +22,10 @@ one template and writes its hot sums with explicit ``__fmaf_rn`` /
 differ.
 Division and ``expf`` stay IEEE everywhere (no ``--use_fast_math``).
 
-Every wrapper takes its launcher (``function``), its operands
-(``operand``) and the current stream's handle (``stream``) from here,
-and hands the launcher's error code to ``check``.
+Every wrapper takes its launcher (``function``), its device
+(``cuda_device``), its operands (``operand``) and the current stream's
+handle (``stream``) from here, and hands the launcher's error code to
+``check``.
 """
 from __future__ import annotations
 
@@ -156,6 +157,19 @@ def operand(t: torch.Tensor, dtype=None, align16: bool = False):
     if not t.is_contiguous():
         t = t.contiguous()
     return t.clone() if align16 and t.data_ptr() % 16 else t
+
+
+def cuda_device(what: str, *tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device that all ``tensors`` lie on; raises
+    ``ValueError`` naming the wrapper ``what`` on any other device or on
+    two devices.  Compares device indices (ints), which costs less host
+    time than building a ``torch.device`` for each tensor."""
+    idx = tensors[0].get_device()
+    if not tensors[0].is_cuda or any(t.get_device() != idx
+                                     for t in tensors[1:]):
+        raise ValueError(f"{what} takes CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    return tensors[0].device
 
 
 def stream(dev: torch.device) -> int:

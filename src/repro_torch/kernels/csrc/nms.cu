@@ -32,10 +32,11 @@
 // candidate from the tile on, as suppression bit words; thread 0 then
 // resolves the greedy order inside the tile on those bits (32 bit tests),
 // and all threads clear the suppressed bits of the later words.  The IoU
-// is computed in the reference's operation order,
-// inter / max(a_i + a_j - inter, 1e-9), with IEEE division; the library
-// is built with -fmad=false so no multiply-add is contracted and a
-// threshold compare never flips on one ULP.
+// is common.cuh's box_iou: the reference's operation order,
+// inter / max(a_i + a_j - inter, 1e-9), with IEEE division, no
+// contracted multiply-add, and NaN carried through every max and min as
+// the reference does, so a box with a NaN coordinate has a NaN IoU, which
+// fails `>= iou_thr` and suppresses nothing.
 //
 // Bound on the card: at the engine's shapes (B <= 8 frames, A = 160,
 // max_out = 32) the work is a few thousand IoUs and 25,600 key
@@ -46,21 +47,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kTile = 32;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float iou(float4 a, float area_a, float4 b,
-                                     float area_b) {
-  const float ix0 = fmaxf(a.x, b.x);
-  const float iy0 = fmaxf(a.y, b.y);
-  const float ix1 = fminf(a.z, b.z);
-  const float iy1 = fminf(a.w, b.w);
-  const float inter = fmaxf(ix1 - ix0, 0.0f) * fmaxf(iy1 - iy0, 0.0f);
-  const float uni = area_a + area_b - inter;
-  return inter / fmaxf(uni, 1e-9f);
-}
 
 // position of candidate i in torch.argsort(-key, stable=True)
 __device__ __forceinline__ int sorted_rank(const float* key, int A, int i) {
@@ -106,7 +98,7 @@ nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores,
     const int r = sorted_rank(key, A, i);
     const float4 v = fb[i];
     sb[r] = v;
-    sa[r] = (v.z - v.x) * (v.w - v.y);
+    sa[r] = box_area(v);
     so[r] = i;
     if (r % kTile == 0) lead[r / kTile] = key[i];
   }
@@ -134,7 +126,7 @@ nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores,
       uint32_t bits = 0;
       for (int k = 0; k < jn; ++k) {
         const int j = kTile * w + k;
-        if (iou(bi, ai, sb[j], sa[j]) >= iou_thr) bits |= 1u << k;
+        if (box_iou(bi, ai, sb[j], sa[j]) >= iou_thr) bits |= 1u << k;
       }
       sup[i * W + w] = bits;
     }

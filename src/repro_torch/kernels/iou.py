@@ -9,10 +9,13 @@ Both compute what the reference package's ``kernels/iou.py``
     iou   = inter / max(union, 1e-9)          (IEEE division)
 
 for a (N, 4) and b (M, 4) xyxy boxes of any float type, read as float32,
-giving a (N, M) float32 matrix.  The reference carries the boxes as
-(4, N) lane planes for the TPU's 128-wide vectors; on the card the boxes
-stay (N, 4) and one thread computes one pair.  ``LAUNCHES`` counts the
-CUDA wrapper's kernel launches.
+giving a (N, M) float32 matrix; NaN is carried through every max and
+min, as ``jnp.maximum``/``jnp.clip`` and ``torch.maximum``/
+``torch.clamp`` carry it.  The reference carries the boxes as (4, N)
+lane planes for the TPU's 128-wide vectors; on the card the boxes stay
+(N, 4), a lane computes four adjacent columns of a row and a warp writes
+a 128-column strip of it in 16-byte stores (``csrc/iou.cu``).
+``LAUNCHES`` counts the CUDA wrapper's kernel launches.
 """
 from __future__ import annotations
 
@@ -54,16 +57,13 @@ def iou_matrix_cuda(a, b):
     other device, on a missing kernel library and on a failed launch."""
     global LAUNCHES
     launch = build.function("iou", "iou_matrix_launch", _LAUNCH_ARGS)
-    dev = a.device
-    if dev.type != "cuda" or b.device != dev:
-        raise ValueError(f"iou_matrix_cuda takes CUDA tensors on one "
-                         f"device, got {a.device} and {b.device}")
+    dev = build.cuda_device("iou_matrix_cuda", a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != 4 or b.shape[1] != 4:
         raise ValueError(f"iou_matrix_cuda: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)} are not (N, 4) and (M, 4)")
     N, M = a.shape[0], b.shape[0]
-    af = build.operand(a, torch.float32)
-    bf = build.operand(b, torch.float32)
+    af = build.operand(a, torch.float32, align16=True)
+    bf = build.operand(b, torch.float32, align16=True)
     out = torch.empty((N, M), dtype=torch.float32, device=dev)
     if N and M:
         err = launch(af.data_ptr(), bf.data_ptr(), N, M, out.data_ptr(),

@@ -124,9 +124,7 @@ def batched_nms_cuda(boxes, scores, *, iou_thr=0.5, score_thr=None,
     candidates than one CTA's shared memory holds fails there)."""
     global LAUNCHES
     launch = build.function("nms", "batched_nms_launch", _LAUNCH_ARGS)
-    if boxes.device.type != "cuda" or scores.device != boxes.device:
-        raise ValueError(f"batched_nms_cuda takes CUDA tensors on one "
-                         f"device, got {boxes.device} and {scores.device}")
+    dev = build.cuda_device("batched_nms_cuda", boxes, scores)
     B, A = scores.shape
     if boxes.shape != (B, A, 4):
         raise ValueError(f"boxes {tuple(boxes.shape)} do not match "
@@ -136,15 +134,15 @@ def batched_nms_cuda(boxes, scores, *, iou_thr=0.5, score_thr=None,
                          f"{max_out}")
     boxes = build.operand(boxes, torch.float32, align16=True)
     scores = build.operand(scores, torch.float32)
-    keep = torch.empty((B, max_out), dtype=torch.int32, device=boxes.device)
-    valid = torch.empty((B, max_out), dtype=torch.bool, device=boxes.device)
+    keep = torch.empty((B, max_out), dtype=torch.int32, device=dev)
+    valid = torch.empty((B, max_out), dtype=torch.bool, device=dev)
     if B:
         err = launch(boxes.data_ptr(), scores.data_ptr(), B, A, max_out,
                      int(score_thr is not None),
                      0.0 if score_thr is None else float(score_thr),
                      float(iou_thr), int(bool(stop_at_zero)),
                      keep.data_ptr(), valid.data_ptr(),
-                     build.stream(boxes.device))
+                     build.stream(dev))
         build.check(err, "batched_nms_launch")
         LAUNCHES += 1
     return keep, valid

@@ -142,14 +142,6 @@ def uncrop_layout(boxes_shape, rois):
     return r, shape[:-1], strides[:-1]
 
 
-def _check_cuda(what, a, b):
-    dev = a.device
-    if dev.type != "cuda" or b.device != dev:
-        raise ValueError(f"{what} takes CUDA tensors on one device, got "
-                         f"{[str(a.device), str(b.device)]}")
-    return dev
-
-
 _CROP_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 + [
     ctypes.c_void_p, ctypes.c_void_p]
 
@@ -162,7 +154,7 @@ def crop_resize_cuda(images, rois, *, out_size: int):
     kernel library and on a failed launch."""
     global CROP_LAUNCHES
     launch = build.function("roi", "crop_resize_launch", _CROP_ARGS)
-    dev = _check_cuda("crop_resize_cuda", images, rois)
+    dev = build.cuda_device("crop_resize_cuda", images, rois)
     B, H, W, ch = images.shape
     R = rois.shape[1]
     C = int(out_size)
@@ -228,7 +220,7 @@ def uncrop_boxes_cuda(boxes, rois, *, bounds, crop_size: int):
     on a missing kernel library and on a failed launch."""
     global UNCROP_LAUNCHES
     launch = build.function("roi", "uncrop_boxes_launch", _UNCROP_ARGS)
-    dev = _check_cuda("uncrop_boxes_cuda", boxes, rois)
+    dev = build.cuda_device("uncrop_boxes_cuda", boxes, rois)
     if boxes.shape[-1] != 4 or boxes.numel() // 4 >= 2 ** 31:
         raise ValueError(f"uncrop_boxes_cuda: boxes {tuple(boxes.shape)}"
                          " are not (..., 4) with fewer than 2**31 boxes")

@@ -309,7 +309,7 @@ def host_path(monkeypatch):
     the stream is 0, the launcher records.  Launch counters restored."""
     rec = _Recorder()
     monkeypatch.setattr(build, "function", lambda *a, **k: rec)
-    monkeypatch.setattr(kroi, "_check_cuda", lambda what, *t: t[0].device)
+    monkeypatch.setattr(build, "cuda_device", lambda what, *t: t[0].device)
     monkeypatch.setattr(build, "stream", lambda dev: 0)
     monkeypatch.setattr(kroi, "CROP_LAUNCHES", 0)
     monkeypatch.setattr(kroi, "UNCROP_LAUNCHES", 0)

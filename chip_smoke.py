@@ -75,7 +75,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain version's float32 result.  Last, each width limit that remains
    (flash D <= 128, decode D <= 256, the scan hs <= 512) must raise a
    ValueError one past it, on CUDA tensors, with no launch counted;
-8. after the profile passes, the three IoU kernels on boxes with NaN,
+8. the fused tracker tick (``[fused]``): the NVR serve of phase 3 with
+   ``fused_tick=True``, each tick one CUDA-graph replay, counted from
+   zero: one capture, a replay a tick, and ``greedy_assign`` launches
+   equal to (1 warm-up + the replays) x the launches captured; then
+   three staged and three fused serves in turns, every report equal to
+   the first fused one exactly, and the tracker's host wall
+   (``stage_ms_track``) of each mode; ``pipeline.fused_window`` (K=8,
+   B=4, D=32) equal to the staged chain on the card bit for bit in one
+   replay, timed against K staged ticks that return the same outputs to
+   the host; under ``--profile``, the tracker stage of the serve replayed
+   staged and fused under the profiler (copies and device events a
+   tick);
+9. the paper's pipeline (``[parallel]``): ``ParallelDetector(
+   "ETH-Sunnyday", "yolov3", ["ncs2"] * n).run(track=True)`` for n = 1..7
+   on the card, counted from zero (one assignment launch a processed
+   frame), each Table IV row printed and held against the same run on
+   ``device="cpu"``: every field exact but ``map_tracked``, within 1e-6;
+   the assignment calls of the n = 1 run recorded and the kernel held
+   exactly against its plain version on them;
+10. after the profile passes, the three IoU kernels on boxes with NaN,
    +-inf and -0.0 coordinates (``[nan]``): the IoU matrix, NMS (the
    example of a NaN box beside two overlapping ones, and mini frames
    with such boxes) and the assignment (a NaN in a live pair, in a masked
@@ -83,7 +102,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    equal to its plain version with NaN at the same places
    (``same_nan``); every case runs before the phase fails on any.
 
-``--profile`` adds one more serve of each path under ``torch.profiler``
+``--profile`` adds one more serve of each path (the NVR serve staged and
+fused) under ``torch.profiler``
 and prints the device time by kernel and the device's busy share (and
 the time a launch of the NMS, assignment and ROI kernels, with the device
 op run just before each uncrop, which must not be a copy), and the
@@ -121,7 +141,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core import proxy_detect_fn_streams  # noqa: E402
+from repro_torch.core import ParallelDetector, proxy_detect_fn_streams  # noqa: E402,E501
 from repro_torch.core.stream import BENCHMARK_VIDEOS, SyntheticVideo  # noqa: E402,E501
 from repro_torch.detector import (SSDConfig, init_ssd, make_anchors,  # noqa: E402,E501
                                   ssd_candidates)
@@ -138,6 +158,8 @@ from repro_torch.kernels import rwkv_scan as krwkv  # noqa: E402
 from repro_torch.serving import (DetectionEngine, FrameRequest,  # noqa: E402
                                  make_cascade_detect_fn, make_nvr_streams,
                                  paper_catalog)
+from repro_torch.serving import pipeline as tpipe  # noqa: E402
+from repro_torch import tracking as trk  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -159,6 +181,10 @@ ROI_BOUNDS = (1.0, 1.0)         # the mini-SSD's boxes are normalized
 CROP_INDEX_FLOPS = 9            # add, div, sub, mul, add, mul, floor, 2 clamp
 UNCROP_FLOPS = 18               # 2 sub + 4 x (div, mul, add, mul)
 FORWARD_ATOL = 1e-4             # cuDNN vs CPU conv sums; Kalman ULPs
+FUSED_K = 8                     # the fused window: (K, B, D) = (8, 4, 32)
+TIMED_SERVES = 3                # staged and fused NVR serves, in turns
+MAP_ATOL = 1e-6                 # map_tracked, cuda vs cpu (Kalman ULPs)
+TABLE_IV_N = range(1, 8)        # the paper's Table IV: n = 1..7 NCS2s
 # the same frames at micro_batch 1 and 5: conv sums in another order
 # (1.2e-7 measured on the CPU), so boxes and scores within 1e-6
 BATCH_ATOL = 1e-6
@@ -986,13 +1012,19 @@ def device_ms_a_call(label, calls, reps=20):
     return out
 
 
+def nvr_engine(params, cfg, fused=False, recorder=None):
+    """The NVR serve's engine: a pinned service time below the arrival
+    rate (the paper's drop regime, so the tracker both associates and
+    interpolates); ``fused`` runs the fused tracker tick."""
+    return DetectionEngine(cfg=cfg, params=params, n_replicas=2,
+                           service_time=SERVICE_S, recorder=recorder,
+                           track_and_interpolate=True, fused_tick=fused,
+                           device=DEV)
+
+
 def phase_serve(params, cfg, frames):
-    # a pinned service time below the arrival rate: the paper's drop
-    # regime, so the tracker both associates and interpolates
     rec = TraceRecorder()
-    eng = DetectionEngine(cfg=cfg, params=params, n_replicas=2,
-                          service_time=SERVICE_S, recorder=rec,
-                          track_and_interpolate=True, device=DEV)
+    eng = nvr_engine(params, cfg, recorder=rec)
     eng.warmup()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1101,7 +1133,8 @@ def phase_profile(label, eng, frames):
     busy_ms = sum(r[0] for r in rows) / 1e3
     print(f"[profile {label}] serve wall {wall_ms:.2f} ms (profiled), "
           f"device busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.3f} of "
-          f"wall, {sum(r[1] for r in rows)} device events")
+          f"wall, {sum(r[1] for r in rows)} device events, copies "
+          f"{copies(rows)}")
     for dev_us, count, key in rows[:15]:
         print(f"[profile {label}] {dev_us / 1e3:9.3f} ms {count:6d}x  "
               f"{key[:90]}")
@@ -1120,6 +1153,13 @@ def phase_profile(label, eng, frames):
           f"{sum(r[1] for r in sorts)} launches, "
           f"{sum(r[0] for r in sorts) / 1e3:.3f} ms; device events a frame "
           f"{sum(r[1] for r in rows) / len(frames):.1f}")
+
+
+def copies(rows):
+    """{"DtoH": n, "HtoD": n, "DtoD": n}: the copies among a profile's
+    device rows (``_device_rows``)."""
+    return {d: sum(c for _, c, k in rows if d in k)
+            for d in ("DtoH", "HtoD", "DtoD")}
 
 
 def profile_calls(label, calls, reps=5):
@@ -1369,6 +1409,230 @@ def hold_to_plain(tag, name, got, x, kernel, plain, tols):
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+
+
+def tick_rows(rng, B, D):
+    """One tick's random detection rows (pixel boxes, three classes,
+    about four in five valid)."""
+    tl = rng.uniform(0, 400, (B, D, 2)).astype(np.float32)
+    wh = rng.uniform(10, 60, (B, D, 2)).astype(np.float32)
+    return (np.concatenate([tl, tl + wh], -1),
+            rng.uniform(0.5, 1.0, (B, D)).astype(np.float32),
+            rng.integers(0, 3, (B, D)).astype(np.int32),
+            rng.random((B, D)) > 0.2)
+
+
+def track_ms(rec):
+    return sum(v for _, v in rec.series.get("stage_ms_track/0", []))
+
+
+def phase_fused(params, cfg, frames, profile=False):
+    """The NVR serve with the fused tick against the staged serve, the
+    graphs' launch accounting, and the fused window against the staged
+    chain on the card."""
+    tpipe.clear_tick_graphs()
+    rec = TraceRecorder()
+    eng = nvr_engine(params, cfg, fused=True, recorder=rec)
+    eng.warmup()
+    ops.reset_launches()
+    rep = eng.serve(frames)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    graphs = tpipe.tick_graphs()
+    ticks = rep["tracker_ticks"]
+    check(len(graphs) == 1, f"fused serve captured {len(graphs)} graphs")
+    g = graphs[0]
+    per = g.captured.get("greedy_assign", 0)
+    print(f"[fused] NVR serve, fused tick: {len(graphs)} capture (K, B, "
+          f"D) = {g.shape}, {g.replays} replays for {ticks} ticks, a replay "
+          f"launches {g.captured}; greedy_assign launches "
+          f"{launches['greedy_assign']} = (1 warm-up + {g.replays} replays)"
+          f" x {per}; all launches {launches}")
+    check(g.shape == (1, rep["n_streams"], 32), f"graph shape {g.shape}")
+    check(g.captured == {"greedy_assign": 1},
+          f"a replay should launch one assignment, captured {g.captured}")
+    check(g.replays == ticks == rep["tracker_launches"],
+          f"{g.replays} replays for {ticks} ticks")
+    check(launches["greedy_assign"] == (1 + g.replays) * per,
+          f"greedy_assign launches {launches['greedy_assign']} != (1 + "
+          f"{g.replays}) x {per}")
+    check(launches["batched_nms"] > 0, "NMS kernel never launched")
+    check(rep["coverage"] == 1.0 and rep["interpolated"] > 0,
+          "fused serve: coverage != 1.0 or nothing interpolated")
+    walls = {"staged": [], "fused": []}
+    for _ in range(TIMED_SERVES):
+        for mode in ("staged", "fused"):
+            r_rec = TraceRecorder()
+            e = nvr_engine(params, cfg, fused=mode == "fused",
+                           recorder=r_rec)
+            e.warmup()
+            r = e.serve(frames)
+            torch.cuda.synchronize()
+            walls[mode].append(track_ms(r_rec))
+            close_report(r, rep, f"NVR {mode} serve vs the fused one", 0.0)
+    check(len(tpipe.tick_graphs()) == 1, "a later fused serve recaptured")
+    med = {m: float(np.median(v)) for m, v in walls.items()}
+    print(f"[fused] {2 * TIMED_SERVES} more serves, staged and fused in "
+          f"turns: every report equal to the fused one exactly")
+    print(f"[fused] tracker host wall (stage_ms_track, {ticks} ticks), "
+          f"median of {TIMED_SERVES}: staged {med['staged']:.2f} ms "
+          f"({', '.join(f'{v:.2f}' for v in walls['staged'])}), fused "
+          f"{med['fused']:.2f} ms "
+          f"({', '.join(f'{v:.2f}' for v in walls['fused'])}); first "
+          f"fused serve with its capture {track_ms(rec):.2f} ms; "
+          f"{med['staged'] / ticks:.3f} against {med['fused'] / ticks:.3f}"
+          f" ms a tick")
+    fused_window_check()
+    if profile:
+        profile_tracker_stage(params, cfg, frames, rep)
+    return launches
+
+
+def fused_window_check():
+    """``fused_window`` at (K, B, D) = (8, 4, 32) against the staged
+    chain on the card, bit for bit, in one replay; then each timed."""
+    rng = np.random.default_rng(SEED + 19)
+    K, B, D = FUSED_K, 4, 32
+    tcfg = trk.TrackerConfig()
+    ticks = [tick_rows(rng, B, D) for _ in range(K)]
+    ticks[3] = tuple(np.zeros_like(a) for a in ticks[3])   # no detection
+    stacked = tuple(np.stack([t[i] for t in ticks]) for i in range(4))
+    state = trk.init_state(B, tcfg, device=DEV)
+    tids, outs = [], []
+    for t in ticks:
+        state, tid = trk.step(state, *(torch.from_numpy(a).to(DEV)
+                                       for a in t), tcfg)
+        tids.append(tid.cpu().numpy())
+        outs.append([a.cpu().numpy() for a in trk.output(state, tcfg)])
+    before = {gr.shape: gr.replays for gr in tpipe.tick_graphs()}
+    wstate, wtid, wout = tpipe.fused_window(
+        trk.init_state(B, tcfg, device=DEV), *stacked, tcfg)
+    gw = [gr for gr in tpipe.tick_graphs() if gr.shape == (K, B, D)]
+    check(len(gw) == 1 and gw[0].replays - before.get((K, B, D), 0) == 1,
+          "the window did not run as one replay of one graph")
+    check(all(torch.equal(a, b) for a, b in zip(state, wstate)),
+          "fused window: final table != the staged chain's")
+    for k in range(K):
+        check(np.array_equal(wtid[k], tids[k]), f"window det_tid tick {k}")
+        for i, a in enumerate(wout):
+            check(np.array_equal(a[k], outs[k][i]),
+                  f"window output {i} tick {k}")
+    print(f"[fused] fused_window K={K} B={B} D={D}: one replay, det_tid, "
+          f"outputs and final table equal to the staged chain bit for bit;"
+          f" a replay launches {gw[0].captured}")
+    pipe = tpipe.TickPipeline(tcfg, device=DEV)
+    held = {"staged": pipe.seed(range(B)), "window": wstate}
+
+    def staged_ticks():
+        st = held["staged"]
+        for t in ticks:
+            st, _, _ = pipe.tick(st, *t)
+            [a.cpu().numpy() for a in pipe.output(st)]
+        held["staged"] = st
+
+    def window():
+        held["window"] = tpipe.fused_window(held["window"], *stacked,
+                                            tcfg)[0]
+
+    t_staged = cuda_ms(staged_ticks, iters=20, warmup=3)
+    t_window = cuda_ms(window, iters=20, warmup=3)
+    print(f"[fused] {K} ticks B={B} D={D} with their outputs on the host "
+          f"(CUDA events, 20 after 3): staged {t_staged:.4f} ms, one "
+          f"window replay {t_window:.4f} ms ({t_staged / t_window:.1f}x)")
+
+
+def profile_tracker_stage(params, cfg, frames, rep):
+    """The fused serve's tracker stage (``_interpolate`` over its
+    detections) replayed staged and fused under ``torch.profiler``:
+    copies, device events and device time a tick."""
+    from torch.profiler import ProfilerActivity, profile
+    det = [r for r in rep["responses"] if not r.interpolated]
+    seq_of = {r.rid: r.seq for r in rep["responses"]}
+    frames = sorted(frames, key=lambda f: f.t_arrival)
+    ticks = rep["tracker_ticks"]
+    for mode in ("staged", "fused"):
+        eng = nvr_engine(params, cfg, fused=mode == "fused")
+        eng._interpolate(frames, det, seq_of, {})       # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng._interpolate(frames, det, seq_of, {})
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = _device_rows(prof)
+        cp = copies(rows)
+        busy = sum(r[0] for r in rows) / 1e3
+        print(f"[profile track-{mode}] {ticks} ticks: wall {wall_ms:.2f} ms "
+              f"(profiled), device busy {busy:.3f} ms, "
+              f"{sum(r[1] for r in rows) / ticks:.1f} device events a tick;"
+              f" a tick: DtoH {cp['DtoH'] / ticks:.2f}, HtoD "
+              f"{cp['HtoD'] / ticks:.2f}, DtoD {cp['DtoD'] / ticks:.2f}")
+        for dev_us, count, key in rows[:6]:
+            print(f"[profile track-{mode}] {dev_us / 1e3:9.3f} ms "
+                  f"{count:6d}x  {key[:80]}")
+
+
+def phase_parallel():
+    """Table IV (ETH-Sunnyday, YOLOv3 on n NCS2s, n = 1..7) with the
+    tracker on the card, each row against the same run on the CPU."""
+    recorded = []
+    wrapper = ops.greedy_assign_cuda
+
+    def recording(*args, **kw):
+        if len(recorded) < 64:
+            recorded.append(([a.clone() for a in args], dict(kw)))
+        return wrapper(*args, **kw)
+
+    ops.reset_launches()
+    reports, processed = {}, 0
+    for n in TABLE_IV_N:
+        ops.greedy_assign_cuda = recording if n == 1 else wrapper
+        try:
+            t0 = time.perf_counter()
+            r = ParallelDetector("ETH-Sunnyday", "yolov3", ["ncs2"] * n,
+                                 device=DEV).run(track=True)
+            torch.cuda.synchronize()
+            reports[n] = (r, time.perf_counter() - t0)
+        finally:
+            ops.greedy_assign_cuda = wrapper
+        processed += round(BENCHMARK_VIDEOS["ETH-Sunnyday"].n_frames
+                           * (1 - r.drop_rate))
+    launches = ops.launches()
+    print(f"[parallel] launches over n = 1..7: {launches}; processed "
+          f"frames {processed}")
+    check(launches["greedy_assign"] == processed > 0,
+          f"greedy_assign launches {launches['greedy_assign']} != one a "
+          f"processed frame ({processed})")
+    for n, (r, wall) in reports.items():
+        cpu = ParallelDetector("ETH-Sunnyday", "yolov3", ["ncs2"] * n,
+                               device="cpu").run(track=True)
+        for f in ("video", "model", "scheduler", "n", "sigma", "map_score",
+                  "drop_rate", "drops_per_processed", "offline",
+                  "track_coverage", "id_switches"):
+            check(getattr(r, f) == getattr(cpu, f),
+                  f"Table IV n={n}: {f} cuda {getattr(r, f)} != cpu "
+                  f"{getattr(cpu, f)}")
+        check(abs(r.map_tracked - cpu.map_tracked) <= MAP_ATOL,
+              f"Table IV n={n}: map_tracked cuda {r.map_tracked} vs cpu "
+              f"{cpu.map_tracked}")
+        check(np.isfinite(r.map_tracked) and 0 < r.track_coverage <= 1,
+              f"Table IV n={n}: map_tracked / coverage out of range")
+        print(f"[parallel] {r.row()}, map_tracked "
+              f"{r.map_tracked * 100:.1f}, coverage {r.track_coverage:.3f},"
+              f" id_switches {r.id_switches:.0f}; cuda {wall:.2f} s; == cpu"
+              f" (map_tracked within "
+              f"{abs(r.map_tracked - cpu.map_tracked):.1e})")
+    check(recorded, "no assignment call recorded on the Table IV path")
+    shapes = sorted({tuple(a[1].shape) for a, _ in recorded})
+    for args, kw in recorded:
+        mk = kassoc.greedy_assign_cuda(*args, **kw)
+        mp = kassoc.greedy_assign_torch(*args, **kw)
+        check(torch.equal(mk, mp), "assignment kernel != plain version on "
+              "a recorded Table IV call")
+    print(f"[parallel] {len(recorded)} recorded assignment calls of the "
+          f"n=1 run (detection boxes {shapes}): kernel == plain version")
+    return launches
 
 
 def phase_seed_nms(params, cfg, anchors, frames):
@@ -1947,15 +2211,18 @@ def main() -> int:
     by_path["attention"], attn_entries = phase_attention(
         profile="--profile" in sys.argv[1:])
     entries.update(attn_entries)
+    by_path["fused"] = phase_fused(params, cfg, frames,
+                                   profile="--profile" in sys.argv[1:])
+    by_path["parallel"] = phase_parallel()
     for k, e in entries.items():
         e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
         check(e["launches"] > 0, f"{k} was never launched on a main path")
     check(len(entries) == 8, f"kernels line has {len(entries)} entries")
     if "--profile" in sys.argv[1:]:
-        phase_profile("nvr", DetectionEngine(
-            cfg=cfg, params=params, n_replicas=2, service_time=SERVICE_S,
-            track_and_interpolate=True, device=DEV), frames)
+        phase_profile("nvr", nvr_engine(params, cfg), frames)
+        phase_profile("nvr-fused", nvr_engine(params, cfg, fused=True),
+                      frames)
         phase_profile("cascade", cascade_engine(params, cfg, DEV), frames)
     phase_nan()
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -5,7 +5,9 @@ tensor goes to the CUDA kernel's wrapper, which launches the kernel or
 raises.  There is no switch that sends CUDA tensors to the plain
 version and no fallback on failure.  Each CUDA wrapper counts its own
 kernel launches; ``launches()`` reads the counts, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels.  A CUDA graph's replay calls no
+wrapper: its holder adds the launches it captured at every replay
+(``add_launches``), so a count is always of kernels that ran.
 """
 from __future__ import annotations
 
@@ -28,27 +30,35 @@ from .roi import (crop_resize_cuda, crop_resize_torch, uncrop_boxes_cuda,
 from .rwkv_scan import CHUNK_T, rwkv_scan_cuda, rwkv_scan_torch
 
 
+# each kernel's launch counter: (module, attribute)
+_COUNTERS = {"batched_nms": (knms, "LAUNCHES"),
+             "greedy_assign": (association, "LAUNCHES"),
+             "crop_resize": (roi, "CROP_LAUNCHES"),
+             "uncrop_boxes": (roi, "UNCROP_LAUNCHES"),
+             "iou_matrix": (iou, "LAUNCHES"),
+             "flash_attention": (kflash, "LAUNCHES"),
+             "decode_attention": (kdecode, "LAUNCHES"),
+             "rwkv_scan": (krwkv, "LAUNCHES")}
+
+
 def launches() -> Dict[str, int]:
     """Kernel launches counted by each CUDA wrapper."""
-    return {"batched_nms": knms.LAUNCHES,
-            "greedy_assign": association.LAUNCHES,
-            "crop_resize": roi.CROP_LAUNCHES,
-            "uncrop_boxes": roi.UNCROP_LAUNCHES,
-            "iou_matrix": iou.LAUNCHES,
-            "flash_attention": kflash.LAUNCHES,
-            "decode_attention": kdecode.LAUNCHES,
-            "rwkv_scan": krwkv.LAUNCHES}
+    return {k: getattr(m, a) for k, (m, a) in _COUNTERS.items()}
 
 
 def reset_launches() -> None:
-    knms.LAUNCHES = 0
-    association.LAUNCHES = 0
-    roi.CROP_LAUNCHES = 0
-    roi.UNCROP_LAUNCHES = 0
-    iou.LAUNCHES = 0
-    kflash.LAUNCHES = 0
-    kdecode.LAUNCHES = 0
-    krwkv.LAUNCHES = 0
+    for m, a in _COUNTERS.values():
+        setattr(m, a, 0)
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` to the wrappers' counters: how a CUDA
+    graph's holder counts the launches that a replay runs without
+    calling a wrapper (and, with ``times=-1``, takes back the counts its
+    wrappers made while the graph was captured, when nothing ran)."""
+    for k, n in counts.items():
+        m, a = _COUNTERS[k]
+        setattr(m, a, getattr(m, a) + times * n)
 
 
 def batched_nms(boxes, scores, *, iou_thr=0.5, score_thr=None, max_out=64,

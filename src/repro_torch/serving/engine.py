@@ -179,9 +179,12 @@ class DetectionEngine:
     * ``post_process=`` installs a ``TickState -> TickState`` stage
       after detect/NMS/ROI and before the responses and the tracker
       (the state carries the batch's model).
+    * ``fused_tick=True`` runs each tracker tick as one fused tick body
+      (``pipeline.make_fused_tick``): on ``cuda`` one CUDA-graph replay
+      a tick, with one copy of the detection rows in and one of the
+      tick's outputs back; bit-identical to the staged chain.
 
-    The reference engine's fault schedule and fused tick come with later
-    slices.
+    The reference engine's fault schedule comes with a later slice.
     """
 
     def __init__(self, cfg=None, params=None, n_replicas: int = 4,
@@ -198,8 +201,8 @@ class DetectionEngine:
                  recorder=None, catalog=None, selector_kw=None,
                  roi: bool = False, roi_bounds=None, roi_max: int = 4,
                  roi_pad: float = 0.1, roi_crop: Optional[int] = None,
-                 post_process=None, carry_tracks: bool = True,
-                 device=None):
+                 fused_tick: bool = False, post_process=None,
+                 carry_tracks: bool = True, device=None):
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}: "
                              "an empty replica pool can never serve")
@@ -258,6 +261,7 @@ class DetectionEngine:
         self.roi_pad = roi_pad
         self.roi_crop = roi_crop
         self.post_process = post_process
+        self.fused_tick = bool(fused_tick)
         self.carry_tracks = bool(carry_tracks)
         self._exported_tracks: Dict[int, dict] = {}
         # does a custom detect_fn accept the cascade's model= / rois=
@@ -405,7 +409,9 @@ class DetectionEngine:
                      tracks0: Optional[Dict[int, dict]] = None,
                      rec=None) -> List[DetectionResponse]:
         """ONE batched tracker over every camera stream, advanced in
-        lockstep: tick k covers each stream's k-th arrival frame.
+        lockstep by the shared tick pipeline: tick k covers each stream's
+        k-th arrival frame (the staged ``trk.step``/``trk.coast`` chain
+        by default; the fused tick under ``fused_tick``, bit-identical).
         Streams whose tick-k frame was processed feed the
         associate/update/birth path; streams whose frame was dropped —
         or that have no frame left — get an all-invalid detection row,
@@ -423,7 +429,7 @@ class DetectionEngine:
         sids = sorted(per)
         row = {s: b for b, s in enumerate(sids)}
         B = len(sids)
-        pipe = TickPipeline(cfg, device=self.device)
+        pipe = TickPipeline(cfg, fused=self.fused_tick, device=self.device)
         rows0 = dict(tracks0) if (self.carry_tracks and tracks0) else {}
         state = pipe.seed(sids, rows0)
         if rec.enabled:
@@ -455,11 +461,13 @@ class DetectionEngine:
                         b = row[s]
                         boxes[b], scores[b] = r.boxes, r.scores
                         classes[b], valid[b] = r.classes, r.valid
-                state, det_tid = pipe.tick(state, boxes, scores, classes,
-                                           valid)
+                state, det_tid, fout = pipe.tick(state, boxes, scores,
+                                                 classes, valid)
             else:                           # no stream saw a detection
-                state = pipe.coast(state)
-            coasted = None                  # materialized only on a drop
+                state, fout = pipe.coast(state, det_width=D)
+            # fused mode returns the tick's output with it; the staged
+            # chain materializes it lazily, only if a drop needs it
+            coasted = fout
             for s, f in tick:
                 if f is None:
                     continue

@@ -41,7 +41,8 @@ def test_serving_imports_with_jax_blocked():
             "repro_torch.detector, repro_torch.tracking, "
             "repro_torch.kernels.iou, repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.decode_attention, "
-            "repro_torch.kernels.rwkv_scan, repro_torch.kernels.ref; "
+            "repro_torch.kernels.rwkv_scan, repro_torch.kernels.ref, "
+            "repro_torch.core.parallel, repro_torch.tracking.interpolate; "
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -61,6 +62,25 @@ def test_detection_engine_without_cuda_raises(monkeypatch):
     assert DetectionEngine(device="cpu").device.type == "cpu"
 
 
+def test_parallel_pipeline_without_cuda_raises(monkeypatch):
+    """``ParallelDetector`` and ``fill_stream`` keep their track table on
+    ``cuda`` unless the caller passes ``device="cpu"``."""
+    from repro_torch.core import FrameStream, ParallelDetector, simulate
+    from repro_torch.tracking import fill_stream
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ParallelDetector("ETH-Sunnyday", "yolov3", ["ncs2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ParallelDetector("ETH-Sunnyday", "yolov3", ["ncs2"], device="cuda")
+    det = ParallelDetector("ETH-Sunnyday", "yolov3", ["ncs2"], device="cpu")
+    assert det.device.type == "cpu"
+    paced = simulate(FrameStream(det.video), det.scheduler)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fill_stream(det.video, paced, det.detector)
+    assert len(fill_stream(det.video, paced, det.detector,
+                           device="cpu")) == paced.n_frames
+
+
 def _entry_points():
     from repro_torch.detector import SSDConfig, init_ssd, params_from_numpy
     from repro_torch.serving import TickPipeline
@@ -74,6 +94,8 @@ def _entry_points():
             "head16": {"w": w, "b": w[0, 0, 0]}}
     return {
         "TickPipeline": lambda **kw: TickPipeline(cfg, **kw).device,
+        "TickPipeline(fused=True)": lambda **kw: TickPipeline(
+            cfg, fused=True, **kw).device,
         "build_tracker_state": lambda **kw: build_tracker_state(
             None, [0, 1], cfg, **kw).active.device,
         "init_state": lambda **kw: init_state(2, cfg, **kw).active.device,

@@ -94,7 +94,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``device="cpu"``: every field exact but ``map_tracked``, within 1e-6;
    the assignment calls of the n = 1 run recorded and the kernel held
    exactly against its plain version on them;
-10. after the profile passes, the three IoU kernels on boxes with NaN,
+10. the detector's training (``[train]``): the SGD loop of
+   ``examples/video_analytics_torch.py`` (loaded by path) at its own
+   settings, ``SSDConfig()``, batch 8, 150 steps on ETH-Sunnyday from
+   ``init_ssd`` seed 0, twice on the card (every loss and weight equal
+   bit for bit: IEEE float32 and deterministic cuDNN inside each step)
+   and once on the CPU (each step's loss and parts within
+   ``TRAIN_RTOL``), ms a step printed, the TF32 switches as found and
+   unchanged after; then on the card in chunks of 150 steps up to 600
+   (after 150 every score can sit above the 0.4 threshold); each
+   checkpoint's detector decodes 8 frames (valid detections a frame
+   printed; the NMS kernel exact against its plain version on its
+   candidates), and the example's per-frame inference time; NMS
+   launches = a decode a checkpoint + 11 timed calls;
+11. sharded serving (``[sharded]``) with the first checkpoint whose NMS
+   ends on a score tail (0 < valid < max_out on a frame): 8 cameras x
+   24 frames at 30 frames/s, 2 replicas a shard at the pinned 25 ms;
+   ``ShardedDetectionEngine`` with 1, 2 and 4 static shards, each also
+   with the one-device mesh (equal bit for bit), 1 shard equal to
+   ``DetectionEngine`` exactly; rebalancing on the skewed trace
+   (``make_skewed_streams``, 2 shards, 0.2 s epochs, a migration); a
+   shard kill and a replica kill under ``Watchdog()`` (a restart, lost
+   frames, retries); each against ``device="cpu"`` (``close_report``,
+   floats within ``FORWARD_ATOL``), and the rebalancing serve again with
+   the fused tick, equal to the staged one exactly (graphs printed).
+   Counted from zero for each serve: NMS launches = the recorder's
+   micro-batches over shards and epochs; staged assignment launches =
+   detection ticks (``TickPipeline.tick`` calls), fused ones = (1
+   warm-up + replays) x captured a graph; ticks + coasts =
+   ``tracker_launches``; the host wall and the valid detections a
+   detected frame of each serve printed;
+12. after the profile passes, the three IoU kernels on boxes with NaN,
    +-inf and -0.0 coordinates (``[nan]``): the IoU matrix, NMS (the
    example of a NaN box beside two overlapping ones, and mini frames
    with such boxes) and the assignment (a NaN in a live pair, in a masked
@@ -128,6 +158,7 @@ second-to-last the card's name and power limit, the last
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import json
 import re
 import subprocess
@@ -143,7 +174,8 @@ import torch  # noqa: E402
 
 from repro_torch.core import ParallelDetector, proxy_detect_fn_streams  # noqa: E402,E501
 from repro_torch.core.stream import BENCHMARK_VIDEOS, SyntheticVideo  # noqa: E402,E501
-from repro_torch.detector import (SSDConfig, init_ssd, make_anchors,  # noqa: E402,E501
+from repro_torch.detector import (SSDConfig, decode_detections,  # noqa: E402,E501
+                                  init_ssd, make_anchors, params_to,
                                   ssd_candidates)
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.obs import TraceRecorder  # noqa: E402
@@ -155,8 +187,10 @@ from repro_torch.kernels import nms as knms  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import roi as kroi  # noqa: E402
 from repro_torch.kernels import rwkv_scan as krwkv  # noqa: E402
-from repro_torch.serving import (DetectionEngine, FrameRequest,  # noqa: E402
-                                 make_cascade_detect_fn, make_nvr_streams,
+from repro_torch.serving import (DetectionEngine, FaultSchedule,  # noqa: E402
+                                 FrameRequest, ShardedDetectionEngine,
+                                 Watchdog, make_cascade_detect_fn,
+                                 make_nvr_streams, make_skewed_streams,
                                  paper_catalog)
 from repro_torch.serving import pipeline as tpipe  # noqa: E402
 from repro_torch import tracking as trk  # noqa: E402
@@ -257,6 +291,32 @@ FLASH_MARGIN_CASES = (
 FLASH_LARGE_LOGITS = ("qwen3-4b large logits T=S=2048 causal f32", 1, 32,
                       2048, 2048, 128, True, torch.float32)
 LARGE_LOGIT = 60.0
+# [train]: the example's SGD loop at its own settings (SSDConfig(),
+# batch 8, 150 steps on ETH-Sunnyday); each step's loss and parts on the
+# card within TRAIN_RTOL of the CPU run's, relative to the larger of the
+# CPU value and TRAIN_FLOOR (box and cls are 0 on a batch without a
+# positive anchor): cuDNN and the CPU sum the convs in other orders, and
+# the difference carries through the SGD trajectory
+EXAMPLE = ROOT / "examples" / "video_analytics_torch.py"
+TRAIN_STEPS = 150
+# the example's 150 steps leave every score above the 0.4 threshold (so
+# NMS fills max_out), 600 steps can leave every one below it; training
+# goes on in chunks of TRAIN_STEPS up to TRAIN_STEPS_LONG and the
+# sharded phase serves the first checkpoint whose NMS ends on a tail
+TRAIN_STEPS_LONG = 600
+TRAIN_BATCH = 8
+TRAIN_RTOL = 1e-3
+TRAIN_FLOOR = 1e-2
+# [sharded]: 8 cameras at RATE_FPS, SERVICE_S a frame and replica, 2
+# replicas a shard; the rebalancing and fault serves cut the trace's
+# 0.8 s into epochs of SHARD_EPOCH_S
+SHARD_CAMS = 8
+SHARD_FRAMES = 24
+SHARD_COUNTS = (1, 2, 4)
+SHARD_EPOCH_S = 0.2
+SHARD_KILL_T = 0.3              # shard 0 dies inside its second epoch
+REPLICA_KILL_T = 0.1            # shard 1's replica 1, back at 0.5 s
+REPLICA_REVIVE_T = 0.5
 # the reference's float32 kernel tolerance (tests/test_kernels.py), rtol =
 # atol, five times that for the RWKV state; a bfloat16 case is held to it
 # before its one final rounding (hold_to_plain)
@@ -288,11 +348,11 @@ def cuda_ms(fn, iters=200, warmup=20):
 
 
 # ------------------------------------------------------------- inputs
-def nvr_frames(n_cams, n_frames, rate):
-    """``make_nvr_streams`` arrivals with real pixels: camera s renders
-    benchmark video s (mod the catalogue) at its own frame index."""
-    frames, frame_of, videos, dets = make_nvr_streams(n_cams, n_frames,
-                                                      rate)
+def nvr_frames(n_cams, n_frames, rate, make=make_nvr_streams, **kw):
+    """``make_nvr_streams`` (or ``make``'s) arrivals with real pixels:
+    camera s renders benchmark video s (mod the catalogue) at its own
+    frame index."""
+    frames, frame_of, videos, dets = make(n_cams, n_frames, rate, **kw)
     vids = [SyntheticVideo(v) for v in BENCHMARK_VIDEOS.values()]
     out = []
     for f in frames:
@@ -1635,6 +1695,342 @@ def phase_parallel():
     return launches
 
 
+# ------------------------------------------------------- training (PR 20)
+def load_example():
+    """``examples/video_analytics_torch.py``, loaded by path (it is a
+    script beside the reference's example, not a package module)."""
+    spec = importlib.util.spec_from_file_location("video_analytics_torch",
+                                                  EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_run(ex, video, params0, device, steps, record=True):
+    """``steps`` SGD steps of the example's ``train_detector`` on
+    ``device`` from ``params0``; returns (params, per-step history, wall
+    seconds).  ``record`` reads every step's loss (a sync a step);
+    without it only the example's print points are read."""
+    hist = [] if record else None
+    t0 = time.perf_counter()
+    _, params, _ = ex.train_detector(
+        video, steps, batch=TRAIN_BATCH, device=device,
+        params=params_to(params0, device), history=hist,
+        log=lambda line: print(f"[train] {device}: {line.strip()}"))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return params, hist, time.perf_counter() - t0
+
+
+def phase_train(cfg, anchors, profile=False):
+    """The mini-SSD trained on the card by the example's SGD loop (full
+    width, batch 8, 150 steps, ETH-Sunnyday), twice on ``cuda`` (losses
+    and weights bit-equal) and once on the CPU (each step's loss and
+    parts within ``TRAIN_RTOL``); then trained on in chunks of 150 steps
+    (each chunk the example's loop from the last weights) up to
+    ``TRAIN_STEPS_LONG``.  Each checkpoint's detector decodes 8 frames
+    (valid detections a frame; the NMS kernel exact against its plain
+    version on those candidates); the 150-step one gives the example's
+    per-frame inference time.  Returns the NMS launches of the path and
+    the weights the sharded phase serves: the first checkpoint with a
+    frame whose valid count lies strictly between 0 and ``max_out`` (NMS
+    ending on a real score tail), else the 150-step ones."""
+    ex = load_example()
+    video = SyntheticVideo(BENCHMARK_VIDEOS["ETH-Sunnyday"])
+    params0 = init_ssd(cfg, torch.Generator().manual_seed(SEED),
+                       device="cpu")
+    found = tf32_settings()
+    print(f"[train] TF32 switches as found: {found}; cudnn deterministic "
+          f"{torch.backends.cudnn.deterministic}, benchmark "
+          f"{torch.backends.cudnn.benchmark}")
+    ops.reset_launches()
+    runs = [train_run(ex, video, params0, DEV, TRAIN_STEPS)
+            for _ in range(2)]
+    check(tf32_settings() == found, "a training step left TF32 changed")
+    (pa, ha, wa), (pb, hb, wb) = runs
+    check(ha == hb, "two cuda trainings: the losses differ")
+    check(all(torch.equal(x, y) for x, y in zip(ex.leaves(pa),
+                                                ex.leaves(pb))),
+          "two cuda trainings: the weights differ")
+    make = ex.make_batch_fn(video, cfg, TRAIN_BATCH)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        make(rng)
+    batch_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    print(f"[train] {TRAIN_STEPS} steps, batch {TRAIN_BATCH}, on {DEV}: "
+          f"{wa / TRAIN_STEPS * 1e3:.3f} and {wb / TRAIN_STEPS * 1e3:.3f} ms "
+          f"a step (host wall, a loss read a step included; of which the "
+          f"numpy batch making {batch_ms:.3f} ms); the two runs bit-equal "
+          f"(losses and weights)")
+    pc, hc, wc = train_run(ex, video, params0, "cpu", TRAIN_STEPS)
+    worst = 0.0
+    for i, (g, c) in enumerate(zip(ha, hc)):
+        for j, name in enumerate(("loss", "box", "obj", "cls")):
+            err = abs(g[j] - c[j]) / max(abs(c[j]), TRAIN_FLOOR)
+            worst = max(worst, err)
+            check(err <= TRAIN_RTOL, f"train step {i} {name}: cuda {g[j]} "
+                  f"vs cpu {c[j]} (relative {err:.2e} > {TRAIN_RTOL})")
+    werr = max(float((x.cpu() - y).abs().max())
+               for x, y in zip(ex.leaves(pa), ex.leaves(pc)))
+    print(f"[train] cpu: {wc / TRAIN_STEPS * 1e3:.3f} ms a step; every "
+          f"step's loss and parts cuda vs cpu within {worst:.2e} relative "
+          f"(held to {TRAIN_RTOL}); trained weights differ by {werr:.2e}; "
+          f"loss {ha[0][0]:.4f} -> {ha[-1][0]:.4f}")
+    checkpoints = {TRAIN_STEPS: pa}
+    p, wl = pa, 0.0
+    for steps in range(2 * TRAIN_STEPS, TRAIN_STEPS_LONG + 1, TRAIN_STEPS):
+        p, _, w = train_run(ex, video, p, DEV, TRAIN_STEPS, record=False)
+        checkpoints[steps] = p
+        wl += w
+    n_long = TRAIN_STEPS_LONG - TRAIN_STEPS
+    print(f"[train] {n_long} more steps on {DEV} in chunks of "
+          f"{TRAIN_STEPS}: {wl / n_long * 1e3:.3f} ms a step (host wall, "
+          f"losses read at the print points only)")
+    idx = np.linspace(0, video.spec.n_frames - 1, 8).astype(int)
+    imgs = torch.from_numpy(np.stack([video.pixels(int(i))
+                                      for i in idx])).to(DEV)
+    valid = {n: decode_detections(p, cfg, imgs, anchors)[3].sum(1).tolist()
+             for n, p in checkpoints.items()}
+    per_frame = ex.inference_ms(pa, cfg, anchors, video)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    mo = NMS_KW["max_out"]
+    for n, counts in valid.items():
+        print(f"[train] {n}-step detector on frames {idx.tolist()}: valid "
+              f"detections a frame {counts} (max_out {mo})")
+    print(f"[train] inference {per_frame * 1e3:.3f} ms a frame (the "
+          f"example's step 2, {TRAIN_STEPS}-step weights, one frame a "
+          f"call); launches {launches}")
+    check(launches["batched_nms"] == len(checkpoints) + 11,
+          f"NMS launches {launches['batched_nms']} != "
+          f"{len(checkpoints)} decodes + 11 timed")
+    for n, p in checkpoints.items():
+        boxes, scores, _ = ssd_candidates(p, cfg, imgs, anchors)
+        kk, kv = knms.batched_nms_cuda(boxes, scores, **NMS_KW)
+        pk, pv = knms.batched_nms_torch(boxes, scores, **NMS_KW)
+        check(torch.equal(kk, pk) and torch.equal(kv, pv),
+              f"NMS kernel != plain version on the {n}-step candidates")
+        q = torch.quantile(scores.flatten().cpu(),
+                           torch.tensor([0.01, 0.5, 0.99])).tolist()
+        print(f"[train] NMS kernel == plain version on the {n}-step "
+              f"detector's 8 x {boxes.shape[1]} candidates (keep and valid "
+              f"exact); scores 1/50/99th percentile "
+              f"{', '.join(f'{x:.4f}' for x in q)}, max "
+              f"{float(scores.max()):.4f}")
+    if profile:
+        profile_train(pa, cfg)
+    tail = [n for n, c in valid.items() if any(0 < v < mo for v in c)]
+    served = tail[0] if tail else TRAIN_STEPS
+    print(f"[train] the sharded phase serves the {served}-step weights"
+          + ("" if tail else " (no checkpoint ended NMS on a score tail)"))
+    return launches, checkpoints[served]
+
+
+def profile_train(params, cfg, steps=20):
+    """``steps`` SGD steps of the example's loop under ``torch.profiler``
+    (after one untraced step): host wall and device busy a step, device
+    events a step, and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    ex = load_example()
+    video = SyntheticVideo(BENCHMARK_VIDEOS["ETH-Sunnyday"])
+    ex.train_detector(video, 1, batch=TRAIN_BATCH, device=DEV,
+                      params=params, log=lambda line: None)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.train_detector(video, steps, batch=TRAIN_BATCH, device=DEV,
+                          params=params, log=lambda line: None)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    print(f"[profile train] {steps} steps: wall {wall_ms / steps:.3f} ms a "
+          f"step (profiled), device busy {busy_ms / steps:.3f} ms a step = "
+          f"{busy_ms / wall_ms:.3f} of wall, "
+          f"{sum(r[1] for r in rows) / steps:.1f} device events a step, "
+          f"copies {copies(rows)}")
+    for dev_us, count, key in rows[:8]:
+        print(f"[profile train] {dev_us / steps / 1e3:9.4f} ms a step "
+              f"{count // steps:4d}x  {key[:90]}")
+
+
+# ------------------------------------------------- sharded serving (PR 20)
+class TickCount:
+    """Counts ``TickPipeline.tick`` (a detection tick: one tracker step,
+    one assignment launch when staged) and ``coast`` calls while
+    installed."""
+
+    def __init__(self):
+        self.n = {"tick": 0, "coast": 0}
+        self._orig = {}
+
+    def __enter__(self):
+        for name in self.n:
+            fn = getattr(tpipe.TickPipeline, name)
+            self._orig[name] = fn
+
+            def counted(pipe, *a, _fn=fn, _name=name, **k):
+                self.n[_name] += 1
+                return _fn(pipe, *a, **k)
+            setattr(tpipe.TickPipeline, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(tpipe.TickPipeline, name, fn)
+
+
+def sharded_engine(params, cfg, device, **kw):
+    return ShardedDetectionEngine(cfg=cfg, params=params, n_replicas=2,
+                                  service_time=SERVICE_S,
+                                  track_and_interpolate=True, device=device,
+                                  **kw)
+
+
+def sharded_serve(label, params, cfg, frames, fused=False, **kw):
+    """One sharded serve on the card, its launch accounting against the
+    recorder's micro-batches and the tracker's ticks, and its host wall.
+    Returns (report, launches)."""
+    rec = TraceRecorder()
+    eng = sharded_engine(params, cfg, DEV, recorder=rec, fused_tick=fused,
+                         **kw)
+    eng.warmup()
+    if fused:
+        tpipe.clear_tick_graphs()
+    ops.reset_launches()
+    with TickCount() as tc:
+        t0 = time.perf_counter()
+        rep = eng.serve(frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ops.launches()
+    n_mb = sum(1 for e in rec.events
+               if e["kind"] == "stage" and e["stage"] == "detect")
+    n = len(frames)
+    det = [int(r.valid.sum()) for r in rep["responses"]
+           if not r.interpolated]
+    mo = NMS_KW["max_out"]
+    print(f"[sharded] {label}: {n} frames, {rep['n_streams']} cameras, "
+          f"{rep['n_shards']} shards: coverage {rep['coverage']}, "
+          f"interpolated {rep['interpolated']}, dropped "
+          f"{len(rep['dropped'])}, micro-batches {n_mb}, ticks {tc.n}, "
+          f"migrations {len(rep.get('migrations', []))}; valid a detected "
+          f"frame min/median/max {min(det)}/{int(np.median(det))}/"
+          f"{max(det)}, {det.count(mo)} of {len(det)} at max_out; host "
+          f"wall {wall * 1e3:.2f} ms; launches {launches}")
+    # every frame answered (detected or interpolated) but the frames a
+    # dead shard lost, which no engine saw
+    lost = rep.get("faults", {}).get("frames_lost_shard", 0)
+    check(len(rep["responses"]) + lost == n,
+          f"{label}: {len(rep['responses'])} responses + {lost} lost != "
+          f"{n} frames")
+    check(launches["batched_nms"] == n_mb > 0,
+          f"{label}: NMS launches {launches['batched_nms']} != "
+          f"micro-batches {n_mb}")
+    check(tc.n["tick"] + tc.n["coast"] == rep["tracker_launches"] > 0,
+          f"{label}: ticks {tc.n} != tracker_launches "
+          f"{rep['tracker_launches']}")
+    if fused:
+        graphs = tpipe.tick_graphs()
+        want = sum((1 + g.replays) * g.captured.get("greedy_assign", 0)
+                   for g in graphs)
+        print(f"[sharded] {label}: {len(graphs)} graphs captured (K, B, D)"
+              f" = {sorted(g.shape for g in graphs)}, "
+              f"{sum(g.replays for g in graphs)} replays")
+        check(sum(g.replays for g in graphs) == rep["tracker_launches"],
+              f"{label}: graph replays != tracker ticks")
+        check(launches["greedy_assign"] == want,
+              f"{label}: assignment launches {launches['greedy_assign']} "
+              f"!= warm-ups + replays x captured ({want})")
+    else:
+        check(launches["greedy_assign"] == tc.n["tick"],
+              f"{label}: assignment launches {launches['greedy_assign']} "
+              f"!= detection ticks {tc.n['tick']}")
+    return rep, launches
+
+
+def phase_sharded(params, cfg):
+    """``ShardedDetectionEngine`` on the card with the trained mini-SSD:
+    static 1, 2 and 4 shards with and without a one-device mesh,
+    rebalancing on the skewed trace, a shard kill and a replica kill
+    under the watchdog, and the rebalancing serve with the fused tick;
+    every serve against ``device="cpu"``.  Returns the launches summed
+    over the serves."""
+    total = {k: 0 for k in ops.launches()}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    cpu_params = params_to(params, "cpu")
+
+    def against_cpu(rep, label, frames, **kw):
+        cpu = sharded_engine(cpu_params, cfg, "cpu", **kw).serve(frames)
+        close_report(rep, cpu, f"sharded {label} cuda vs cpu",
+                     FORWARD_ATOL)
+
+    frames, *_ = nvr_frames(SHARD_CAMS, SHARD_FRAMES, rate=RATE_FPS)
+    mesh = (f"{DEV}:0",)                # one device: bit for bit
+    for n in SHARD_COUNTS:
+        rep, launches = sharded_serve(f"static n_shards={n}", params, cfg,
+                                      frames, n_shards=n)
+        add(launches)
+        mrep, launches = sharded_serve(f"static n_shards={n} mesh {mesh}",
+                                       params, cfg, frames, n_shards=n,
+                                       mesh=mesh)
+        add(launches)
+        close_report(mrep, rep, f"n_shards={n}: mesh vs meshless", 0.0)
+        against_cpu(rep, f"n_shards={n}", frames, n_shards=n)
+        if n == 1:
+            base = DetectionEngine(cfg=cfg, params=params, n_replicas=2,
+                                   service_time=SERVICE_S,
+                                   track_and_interpolate=True,
+                                   device=DEV).serve(frames)
+            close_report(base, {k: rep[k] for k in base},
+                         "n_shards=1 vs DetectionEngine", 0.0)
+        print(f"[sharded] n_shards={n}: mesh == meshless bit for bit, cuda "
+              f"== cpu (floats within {FORWARD_ATOL})"
+              + ("; == DetectionEngine exactly" if n == 1 else ""))
+    skewed, *_ = nvr_frames(SHARD_CAMS, SHARD_FRAMES, RATE_FPS,
+                            make=make_skewed_streams, n_shards=2)
+    kw = dict(n_shards=2, rebalance=True, epoch_s=SHARD_EPOCH_S)
+    steal, launches = sharded_serve("rebalance, skewed", params, cfg,
+                                    skewed, **kw)
+    add(launches)
+    check(steal["migrations"], "rebalancing serve: no migration")
+    against_cpu(steal, "rebalance", skewed, **kw)
+    print(f"[sharded] rebalance: migrations {steal['migrations']}, "
+          f"{steal['n_epochs']} epochs; cuda == cpu")
+    faults = (FaultSchedule.shard_kill(SHARD_KILL_T, shard=0)
+              + FaultSchedule.replica_kill(REPLICA_KILL_T, replica=1,
+                                           shard=1,
+                                           revive_t=REPLICA_REVIVE_T))
+    fkw = dict(n_shards=2, rebalance=True, epoch_s=SHARD_EPOCH_S)
+    frep, launches = sharded_serve("shard kill + replica kill, watchdog",
+                                   params, cfg, frames, faults=faults,
+                                   supervisor=Watchdog(), **fkw)
+    add(launches)
+    fl = frep["faults"]
+    check(fl["frames_lost_shard"] > 0 and fl["restarts"],
+          f"fault serve: no frame lost or no restart: {fl}")
+    check(sum(frep["retries"].values()) > 0, "fault serve: no retry")
+    cpu = sharded_engine(cpu_params, cfg, "cpu", faults=faults,
+                         supervisor=Watchdog(), **fkw).serve(frames)
+    close_report(frep, cpu, "sharded faults cuda vs cpu", FORWARD_ATOL)
+    print(f"[sharded] faults: {fl}, recovered_coverage "
+          f"{frep['recovered_coverage']}, retries {frep['retries']}, "
+          f"failovers {frep['failovers']}, migrations "
+          f"{frep['migrations']}; cuda == cpu")
+    fused, launches = sharded_serve("rebalance, skewed, fused tick",
+                                    params, cfg, skewed, fused=True, **kw)
+    add(launches)
+    close_report(fused, steal, "sharded rebalance fused vs staged", 0.0)
+    print("[sharded] fused tick: report == the staged rebalancing serve "
+          "exactly")
+    return total
+
+
 def phase_seed_nms(params, cfg, anchors, frames):
     """The seed's per-image NMS path on the card: ``ops.nms_serial`` and
     ``ops.nms`` on each of 8 frames of mini-SSD candidates, counted from
@@ -2214,6 +2610,9 @@ def main() -> int:
     by_path["fused"] = phase_fused(params, cfg, frames,
                                    profile="--profile" in sys.argv[1:])
     by_path["parallel"] = phase_parallel()
+    by_path["train"], trained = phase_train(
+        cfg, anchors, profile="--profile" in sys.argv[1:])
+    by_path["sharded"] = phase_sharded(trained, cfg)
     for k, e in entries.items():
         e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
@@ -2224,6 +2623,9 @@ def main() -> int:
         phase_profile("nvr-fused", nvr_engine(params, cfg, fused=True),
                       frames)
         phase_profile("cascade", cascade_engine(params, cfg, DEV), frames)
+        phase_profile("sharded-2", sharded_engine(trained, cfg, DEV,
+                                                  n_shards=2),
+                      nvr_frames(SHARD_CAMS, SHARD_FRAMES, RATE_FPS)[0])
     phase_nan()
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))

@@ -1,6 +1,7 @@
 """Mini single-shot detector in PyTorch: the port of the reference
-package's ``detector/ssd.py`` (inference only; the training loss comes
-with a later slice).
+package's ``detector/ssd.py`` — inference and the training loss
+(``detector_loss``, which the SGD loop of
+``examples/video_analytics_torch.py`` differentiates with autograd).
 
 Conv backbone (stride-2 blocks) -> two feature maps -> per-anchor box
 regression + objectness + class logits; decode + greedy NMS through the
@@ -131,6 +132,18 @@ def params_from_numpy(tree, device=None):
     return params_to(p, device)
 
 
+def params_to_numpy(p):
+    """The inverse of ``params_from_numpy``: the port's parameters (or a
+    tree of their gradients) as the reference's pytree of numpy arrays,
+    conv kernels back from (out, in, kh, kw) to (kh, kw, in, out)."""
+    def conv(d):
+        w = d["w"].detach().cpu().numpy()
+        return {"w": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+                "b": d["b"].detach().cpu().numpy().copy()}
+    return {"backbone": [conv(d) for d in p["backbone"]],
+            "head8": conv(p["head8"]), "head16": conv(p["head16"])}
+
+
 @ieee_float32()
 def ssd_forward(p, cfg: SSDConfig, images):
     """images: (B, S, S, 3) -> (boxes_delta (B,A,4), obj (B,A),
@@ -149,6 +162,63 @@ def ssd_forward(p, cfg: SSDConfig, images):
         outs.append(y.reshape(B, g * g * 2, 5 + cfg.n_classes))
     y = torch.cat(outs, 1)                   # (B, A, 5+C)
     return y[..., :4], y[..., 4], y[..., 5:]
+
+
+def detector_loss(p, cfg: SSDConfig, images, gt_boxes, gt_classes, gt_mask,
+                  anchors):
+    """gt_boxes: (B,K,4) in [0,1]; gt_classes (B,K) int; gt_mask: (B,K)
+    valid flags; anchors (A,4) on the images' device.  Returns ``(loss,
+    {"box", "obj", "cls"})`` with the reference's arithmetic in its
+    order: an anchor is positive when its best masked IoU with a ground
+    truth box is >= 0.45 (ties in the argmax take the first box, as
+    ``jnp.argmax`` does); L1 box deltas and the class cross-entropy over
+    the positives, and the objectness logistic loss written out as the
+    reference writes it, all anchors."""
+    deltas, obj, cls_logits = ssd_forward(p, cfg, images)
+    anc = anchors
+    iou = _iou(anc, gt_boxes) * gt_mask[:, None, :]        # (B,A,K)
+    best_gt = torch.argmax(iou, -1)                        # (B,A)
+    pos = torch.amax(iou, -1) >= 0.45
+    tgt_box = torch.gather(
+        gt_boxes, 1, best_gt[..., None].expand(*best_gt.shape, 4))
+    tgt_cls = torch.gather(gt_classes, 1, best_gt)
+    anc_wh = anc[:, 2:] - anc[:, :2]
+    anc_c = (anc[:, :2] + anc[:, 2:]) / 2
+    tgt_c = (tgt_box[..., :2] + tgt_box[..., 2:]) / 2
+    tgt_wh = torch.clamp(tgt_box[..., 2:] - tgt_box[..., :2], min=1e-4)
+    tgt_delta = torch.cat(
+        [(tgt_c - anc_c) / anc_wh, torch.log(tgt_wh / anc_wh)], -1)
+
+    posf = pos.to(torch.float32)
+    n_pos = torch.clamp(torch.sum(posf), min=1.0)
+    box_l = torch.sum(_abs(deltas - tgt_delta).sum(-1) * posf) / n_pos
+    obj_t = posf
+    obj_l = torch.mean(torch.maximum(obj, torch.zeros_like(obj))
+                       - obj * obj_t + torch.log1p(torch.exp(-_abs(obj))))
+    logz = torch.logsumexp(cls_logits, -1)
+    gold = torch.gather(cls_logits, -1, tgt_cls[..., None].long())[..., 0]
+    cls_l = torch.sum((logz - gold) * posf) / n_pos
+    return box_l + obj_l + cls_l, {"box": box_l, "obj": obj_l, "cls": cls_l}
+
+
+def _abs(x):
+    """|x| with the reference's derivative at 0: +1, as ``jnp.abs``
+    has, where ``torch.abs`` has 0.  It matters at init: the zero
+    biases give an objectness logit of exactly 0 over black pixels."""
+    return torch.where(x >= 0, x, -x)
+
+
+def _iou(a, b):
+    """IoU of anchors ``a`` (A,4) against each image's boxes ``b``
+    (B,K,4): (B,A,K), in the reference's order (product of the clipped
+    extent, union floored at 1e-9)."""
+    tl = torch.maximum(a[None, :, None, :2], b[:, None, :, :2])
+    br = torch.minimum(a[None, :, None, 2:], b[:, None, :, 2:])
+    inter = torch.prod(torch.clamp(br - tl, min=0.0), -1)
+    aa = torch.prod(a[:, 2:] - a[:, :2], -1)
+    ab = torch.prod(b[..., 2:] - b[..., :2], -1)
+    return inter / torch.clamp(aa[None, :, None] + ab[:, None, :] - inter,
+                               min=1e-9)
 
 
 def ssd_candidates(p, cfg: SSDConfig, images, anchors):

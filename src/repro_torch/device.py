@@ -3,7 +3,8 @@
 Every entry point takes ``device``; ``None`` means ``cuda``.  The port
 never carries on on the CPU by itself: ``device="cpu"`` is the caller's
 explicit choice (the tests make it).  ``ieee_float32`` keeps the port's
-float32 convolutions and matrix products out of TF32.
+float32 convolutions and matrix products out of TF32;
+``cudnn_deterministic`` makes cuDNN pick deterministic algorithms.
 """
 from __future__ import annotations
 
@@ -61,3 +62,20 @@ def ieee_float32():
     finally:
         for obj, attr, old in reversed(undo):
             setattr(obj, attr, old)
+
+
+@contextmanager
+def cudnn_deterministic():
+    """Run cuDNN with deterministic algorithms inside
+    (``torch.backends.cudnn.deterministic`` on, ``benchmark`` off), and
+    restore both on exit.  Usable as a decorator.  A training step holds
+    it around its forward, backward and update, so that the weight
+    gradients (whose cuDNN kernels may otherwise sum with atomics, in
+    any order) and so the trained weights repeat bit for bit."""
+    cudnn = torch.backends.cudnn
+    old = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = old

@@ -94,6 +94,7 @@ class ReplicaExecutor:
         self.n_processed = 0
         self.ewma_service = None
         self._last_wall = 0.1
+        self.faults = None            # optional faults.ReplicaFaultView
         # loadable-model catalog (serving.models.ModelCatalog), attached
         # by the owning engine.  It travels with the executor, so replica
         # lending can move a guest's home catalog into another pool.
@@ -107,10 +108,18 @@ class ReplicaExecutor:
         return 1.0 / max(t, 1e-6)
 
     def service_time(self, frame=None, t=None) -> float:
-        """Virtual service seconds for one frame (the scheduler passes
-        the dispatch time ``t``; it matters only once fault injection is
-        ported)."""
-        return self._last_wall * self.speed
+        """Virtual service seconds for one frame.  ``t`` is the virtual
+        dispatch time the scheduler evaluates the work at; it only
+        matters when a fault view is attached — an injected slowdown
+        multiplies the base estimate and a dead replica reports
+        infinity, which the scheduler's timeout rule turns into a
+        suspect + retry (``core.scheduler``)."""
+        s = self._last_wall * self.speed
+        if self.faults is not None and t is not None:
+            if not self.faults.alive(t):
+                return float("inf")
+            s *= self.faults.factor(t)
+        return s
 
     def record(self, t_service: float):
         self.n_processed += 1
@@ -183,8 +192,15 @@ class DetectionEngine:
       (``pipeline.make_fused_tick``): on ``cuda`` one CUDA-graph replay
       a tick, with one copy of the detection rows in and one of the
       tick's outputs back; bit-identical to the staged chain.
-
-    The reference engine's fault schedule comes with a later slice.
+    * ``faults=`` takes a ``serving.faults.FaultSchedule`` of
+      virtual-time replica slowdowns/deaths/revivals (``fault_shard``
+      picks which shard's events apply — 0 standalone).  The scheduler
+      detects failures by timeout (``timeout_k`` x expected service),
+      retries the in-flight frame up to ``max_retries`` times on a
+      healthy replica, and the report's ``retries`` / ``failovers`` /
+      ``frames_lost`` keys count the outcomes per replica.  An empty
+      schedule (or ``None``) leaves every path bit-identical to an
+      engine built without one.
     """
 
     def __init__(self, cfg=None, params=None, n_replicas: int = 4,
@@ -197,6 +213,7 @@ class DetectionEngine:
                  track_and_interpolate: bool = False,
                  tracker_cfg=None, detect_fn=None,
                  service_time: Optional[float] = None,
+                 faults=None, fault_shard: int = 0,
                  timeout_k: float = 4.0, max_retries: int = 1,
                  recorder=None, catalog=None, selector_kw=None,
                  roi: bool = False, roi_bounds=None, roi_max: int = 4,
@@ -234,6 +251,12 @@ class DetectionEngine:
             self.cfg = cfg
         speeds = list(replica_speeds or [1.0] * n_replicas)
         self.replicas = [ReplicaExecutor(i, s) for i, s in enumerate(speeds)]
+        # an EMPTY schedule normalizes to None, so the no-fault path
+        # attaches no views and stays bit-identical
+        self.faults = faults if faults else None
+        if self.faults is not None:
+            for r in self.replicas:
+                r.faults = self.faults.view(fault_shard, r.idx)
         self.scheduler = make_scheduler(scheduler, self.replicas,
                                         host_overhead=1e-4,
                                         timeout_k=timeout_k,

@@ -42,7 +42,10 @@ def test_serving_imports_with_jax_blocked():
             "repro_torch.kernels.iou, repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.decode_attention, "
             "repro_torch.kernels.rwkv_scan, repro_torch.kernels.ref, "
-            "repro_torch.core.parallel, repro_torch.tracking.interpolate; "
+            "repro_torch.core.parallel, repro_torch.tracking.interpolate, "
+            "repro_torch.sharding, repro_torch.sharding.serving_rules, "
+            "repro_torch.serving.faults, repro_torch.serving.supervisor, "
+            "repro_torch.serving.sharded; "
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -79,6 +82,51 @@ def test_parallel_pipeline_without_cuda_raises(monkeypatch):
         fill_stream(det.video, paced, det.detector)
     assert len(fill_stream(det.video, paced, det.detector,
                            device="cpu")) == paced.n_frames
+
+
+def test_sharded_engine_and_mesh_detect_without_cuda_raise(monkeypatch):
+    """``ShardedDetectionEngine`` places its shards' trackers (and the
+    detector) on ``cuda`` unless told otherwise, and a mesh entry of
+    None or ``cuda`` means the card: without one, each raises."""
+    from repro_torch.core import proxy_detect_fn_streams
+    from repro_torch.detector import SSDConfig, init_ssd
+    from repro_torch.serving import (ShardedDetectionEngine,
+                                     make_nvr_streams, make_spmd_detect)
+    f, fo, v, d = make_nvr_streams(2, 2, rate=1.0)
+    oracle = proxy_detect_fn_streams(v, d, fo)
+    cfg = SSDConfig()
+    params = init_ssd(cfg, torch.Generator().manual_seed(0), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}, {"detect_fn": oracle},
+               {"mesh": ("cpu",), "params": params}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardedDetectionEngine(n_shards=2, **kw)
+    for mesh in ((None,), ("cuda",), ("cpu", "cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_spmd_detect(cfg, params, mesh)
+    eng = ShardedDetectionEngine(n_shards=2, detect_fn=oracle, device="cpu")
+    assert {e.device.type for e in eng.engines} == {"cpu"}
+    make_spmd_detect(cfg, params, ("cpu",))
+
+
+def test_train_detector_without_cuda_raises(monkeypatch):
+    """The example's training loop runs on ``cuda`` unless the caller
+    passes ``device="cpu"``."""
+    import importlib.util
+    from repro_torch.core import SyntheticVideo
+    from repro_torch.core.stream import ETH_SUNNYDAY
+    spec = importlib.util.spec_from_file_location(
+        "video_analytics_torch", REPO / "examples" / "video_analytics_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    video = SyntheticVideo(ETH_SUNNYDAY)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ex.train_detector(video, 1, batch=1, **kw)
+    _, params, _ = ex.train_detector(video, 1, batch=1, device="cpu",
+                                     log=lambda s: None)
+    assert params["head8"]["w"].device.type == "cpu"
 
 
 def _entry_points():

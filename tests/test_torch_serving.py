@@ -215,8 +215,10 @@ def test_runtime_chunked_ingest_equals_one_shot():
 
 def test_runtime_epoch_reports_match_reference():
     """Two epochs through ``epoch_boundary``: each segment report equals
-    the reference's, and the second segment's tracker continues the
-    first one's identities (carried portable rows)."""
+    the reference's, the second segment's tracker continues the first
+    one's identities (carried portable rows), and the cumulative view
+    and ``drain()`` merge the two segments as the reference does
+    (``merge_epoch_shard_reports``)."""
     from repro.serving import ServingRuntime as JRuntime
     reps = []
     for streams, proxy, Engine, Runtime, kw in (
@@ -229,12 +231,14 @@ def test_runtime_epoch_reports_match_reference():
         rt.ingest(f[:12])
         first = rt.epoch_boundary()
         rt.ingest(f[12:])
-        reps.append((first, rt.epoch_boundary(), rt))
-    (j1, j2, _), (t1, t2, rt) = reps
+        partial = rt.report(rolling=False)
+        reps.append((first, partial, rt.epoch_boundary(), rt.drain()))
+    (j1, jp, j2, jd), (t1, tp, t2, td) = reps
     assert_reports_match(j1, t1)
     assert_reports_match(j2, t2)
     ids = [{int(t) for r in rep["responses"] if not r.interpolated
             for t in r.track_ids if t >= 0} for rep in (t1, t2)]
     assert ids[0] & ids[1]                      # identities survive
-    with pytest.raises(NotImplementedError):    # merge not ported yet
-        rt.drain()
+    assert_reports_match(jp, tp)
+    assert_reports_match(jd, td)
+    assert len(td["responses"]) == 24 and td["per_epoch"].keys() == {0, 1}

@@ -131,6 +131,43 @@ Phases, in order; any failure exits non-zero and prints no result:
    slot, infinite sides, -0.0 corners; iou_thr -1, 0, 0.3, 1), each
    equal to its plain version with NaN at the same places
    (``same_nan``); every case runs before the phase fails on any.
+13. the always-on daemon (``[daemon]``, after ``[sharded]``, with its
+   weights): ``launch.daemon.ServingDaemon`` over the rebalancing
+   sharded engine with the fused tick (8 cameras of the skewed trace, 2
+   shards, 0.2 s epochs, ``Watchdog()``), ``recorder=bus.recorder()`` of
+   an ``EventBus`` with a ``JsonlSink``, on the ``VirtualClock`` at
+   chunks of 1 and 4 frames: each report equal to one batch ``serve`` on
+   the card exactly and to the same daemon on ``device="cpu"`` within
+   ``FORWARD_ATOL``; bus counts by topic and JSONL lines equal to the
+   CPU run's; ``audit_recorder`` ok, and the Chrome export, read back
+   through ``events_from_chrome``, audits to the same stats; NMS
+   launches = micro-batches, assignment launches = (1 warm-up + replays)
+   x captured; the tick graphs (printed) no more than the distinct
+   camera counts of the trace's (epoch, shard) segments, each graph's B
+   one of them; then the same trace on a ``WallClock`` (chunk 4): the
+   report equal to the virtual one, its wall printed; then
+   ``launch.daemon``'s and ``launch.serve --payload frames --spmd
+   --trace``'s ``main`` on the card, each ending with audit ok, and
+   ``tools/check_trace_torch.py`` exiting 0 on the written trace;
+14. token serving (``[llm]``, last): qwen3-4b at its full published
+   configuration (36 layers, d_model 2560, 32 heads, 8 KV heads,
+   head_dim 128, d_ff 9728, vocab 151936 padded to 152064, bf16), random
+   weights from seed 0 drawn on the card; a ``ServingEngine`` (4
+   replicas, fcfs, ``cache_len`` 256) serves 8 requests of 16-token
+   prompts and 8 new tokens (parameter bytes, peak memory, ms a prefill
+   and a decode token by CUDA events, req/s on the virtual clock and the
+   first response's tokens printed); at each decode step of the first
+   request the logits are held against a fresh prefill of the prompt
+   plus the tokens so far, at its last position, within
+   ``LLM_BF16_TOL``, the greedy token equal wherever the prefill's top-2
+   margin exceeds it, and each of ``DECODE_FAULTS`` planted in the decode
+   step (rope position off by one, the token's K/V not written to the
+   ring, written one slot on) must read above it; then a 2-layer model
+   of the same width in float32 on the card and on the CPU from the same
+   weights: logits within ``LLM_F32_TOL``, decode against prefill on the
+   card within it and each planted fault above it, and the served tokens
+   equal unless the first difference sits at a top-2 margin below it
+   (printed).
 
 ``--profile`` adds one more serve of each path (the NVR serve staged and
 fused) under ``torch.profiler``
@@ -151,18 +188,26 @@ share of the bound,
 and, where one PyTorch call computes the same function, that call's time
 (SDPA for the two attention kernels; used for comparison only).
 
+``[llm]`` launches none of the eight kernels: the model code computes
+attention with ``models.attention.sdpa`` in plain tensor code, as the
+reference's does.
+
 The third-to-last line is a JSON object with one entry per kernel, the
 second-to-last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import importlib.util
+import io
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -177,8 +222,20 @@ from repro_torch.core.stream import BENCHMARK_VIDEOS, SyntheticVideo  # noqa: E4
 from repro_torch.detector import (SSDConfig, decode_detections,  # noqa: E402,E501
                                   init_ssd, make_anchors, params_to,
                                   ssd_candidates)
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.device import ieee_float32  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.obs import TraceRecorder  # noqa: E402
+from repro_torch.launch import daemon as launch_daemon  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch.daemon import (ServingDaemon, VirtualClock,  # noqa: E402,E501
+                                       WallClock)
+from repro_torch.models import (dense_stages, init_model,  # noqa: E402
+                                model_apply)
+from repro_torch.models import attention as llm_attention  # noqa: E402
+from repro_torch.obs import (TraceRecorder, audit_events,  # noqa: E402
+                             audit_recorder, events_from_chrome,
+                             write_chrome_trace)
+from repro_torch.runtime import make_decode_step, make_prefill_step  # noqa: E402,E501
 from repro_torch.kernels import association as kassoc  # noqa: E402
 from repro_torch.kernels import decode_attention as kdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
@@ -187,11 +244,12 @@ from repro_torch.kernels import nms as knms  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import roi as kroi  # noqa: E402
 from repro_torch.kernels import rwkv_scan as krwkv  # noqa: E402
-from repro_torch.serving import (DetectionEngine, FaultSchedule,  # noqa: E402
-                                 FrameRequest, ShardedDetectionEngine,
-                                 Watchdog, make_cascade_detect_fn,
-                                 make_nvr_streams, make_skewed_streams,
-                                 paper_catalog)
+from repro_torch.serving import (DetectionEngine, EventBus,  # noqa: E402
+                                 FaultSchedule, FrameRequest, JsonlSink,
+                                 Request, ServingEngine, ServingRuntime,
+                                 ShardedDetectionEngine, Watchdog,
+                                 make_cascade_detect_fn, make_nvr_streams,
+                                 make_skewed_streams, paper_catalog)
 from repro_torch.serving import pipeline as tpipe  # noqa: E402
 from repro_torch import tracking as trk  # noqa: E402
 
@@ -317,6 +375,18 @@ SHARD_EPOCH_S = 0.2
 SHARD_KILL_T = 0.3              # shard 0 dies inside its second epoch
 REPLICA_KILL_T = 0.1            # shard 1's replica 1, back at 0.5 s
 REPLICA_REVIVE_T = 0.5
+DAEMON_CHUNKS = (1, 4)          # frames a daemon ingest; the last also paced
+LLM_CACHE_LEN = 256             # ServingEngine's ring cache, as serve.py's
+LLM_PROMPT = 16                 # tokens a prompt
+LLM_NEW = 8                     # greedy tokens a request
+LLM_REQUESTS = 8
+LLM_RATE = 20.0                 # req/s: serve.py's default arrival rate
+LLM_F32_REQUESTS = 2            # the 2-layer float32 model, cuda vs cpu
+# |decode - prefill| logits in bf16 over 36 layers, between the sound
+# decode's reading and the planted faults' (H100: sound 0.0547 at logits
+# up to 4.06; each fault at least 0.340 at every step): 2.3x the sound one
+LLM_BF16_TOL = 0.125
+LLM_F32_TOL = 1e-4              # |cuda - cpu| logits, float32, 2 layers
 # the reference's float32 kernel tolerance (tests/test_kernels.py), rtol =
 # atol, five times that for the RWKV state; a bfloat16 case is held to it
 # before its one final rounding (hold_to_plain)
@@ -2547,6 +2617,475 @@ def check_width_limits():
         print(f"[limits] {what}: ValueError before any launch: {raised}")
 
 
+# ------------------------------------------------------------- daemon
+def _daemon_engine(params, cfg, device, recorder):
+    return sharded_engine(params, cfg, device, n_shards=2, rebalance=True,
+                          epoch_s=SHARD_EPOCH_S, supervisor=Watchdog(),
+                          fused_tick=True, recorder=recorder)
+
+
+def segment_cameras(events):
+    """The camera count B of every (epoch window, shard) segment the
+    trace served: the distinct streams of its ``arrive`` events.  A
+    segment's tracker is B rows wide, so these are the B a fused tick
+    graph can be captured at."""
+    seen, epoch = {}, 0
+    for e in sorted(events, key=lambda e: e["i"]):
+        if e["kind"] == "epoch":
+            epoch = e["epoch"]
+        elif e["kind"] == "arrive":
+            seen.setdefault((epoch, e.get("shard", 0)),
+                            set()).add(e["stream"])
+    return sorted({len(s) for s in seen.values()})
+
+
+def daemon_run(params, cfg, device, frames, chunk, clock, tmp):
+    """One ``ServingDaemon`` run of the rebalancing, fused-tick sharded
+    engine behind an ``EventBus`` with a ``JsonlSink``.  Returns (report,
+    recorder, bus counts, JSONL lines, launches, graphs, host wall)."""
+    bus = EventBus()
+    path = tmp / f"events-{device}-{chunk}-{clock.__name__}.jsonl"
+    rec = bus.recorder()
+    eng = _daemon_engine(params, cfg, device, rec)
+    eng.warmup()
+    tpipe.clear_tick_graphs()
+    # the clock starts after the warm-up: a WallClock paces from here
+    daemon = ServingDaemon(ServingRuntime(eng, streams=range(SHARD_CAMS)),
+                           clock=clock(), chunk=chunk)
+    with JsonlSink(str(path)) as sink:
+        bus.subscribe(sink)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rep = daemon.run(frames)
+        if device == DEV:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launches()
+    graphs = [g for g in tpipe.tick_graphs()
+              if g.device.type == torch.device(device).type]
+    check(daemon.frames_ingested == len(frames) and
+          daemon.runtime.frames_pending == 0,
+          f"daemon chunk {chunk}: {daemon.frames_ingested} ingested, "
+          f"{daemon.runtime.frames_pending} pending")
+    lines = path.read_text().splitlines()
+    return rep, rec, dict(bus.counts), lines, launches, graphs, wall
+
+
+def run_main_quietly(main, argv):
+    """``main(argv)`` of a launcher with its standard output captured;
+    returns the output.  A launcher whose audit fails exits non-zero."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def phase_daemon(params, cfg):
+    """The always-on daemon on the card: ``ServingDaemon`` over the
+    rebalancing, fused-tick sharded engine (the trained mini-SSD, 8
+    cameras on the skewed trace, 2 shards, ``Watchdog()``), the bus and a
+    JSONL sink, on the ``VirtualClock`` at chunks 1 and 4: each report
+    identical to one batch ``serve`` on the card and close to the same
+    daemon on ``cpu``, bus counts and JSONL lines equal to the CPU run's,
+    the audit clean and equal through the Chrome export, NMS and
+    assignment launches counted, the tick graphs within their bound; one
+    ``WallClock`` run equal to the virtual one; then the two launchers'
+    ``main`` on the card with their traces checked by
+    ``tools/check_trace_torch.py``.  Returns the launches summed over the
+    card's runs."""
+    total = {k: 0 for k in ops.launches()}
+    frames, *_ = nvr_frames(SHARD_CAMS, SHARD_FRAMES, RATE_FPS,
+                            make=make_skewed_streams, n_shards=2)
+    cpu_params = params_to(params, "cpu")
+    batch = _daemon_engine(params, cfg, DEV, None).serve(frames)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="daemon-", dir=ROOT / "build"))
+    virtual = None
+    try:
+        for chunk in DAEMON_CHUNKS:
+            rep, rec, counts, lines, launches, graphs, wall = daemon_run(
+                params, cfg, DEV, frames, chunk, VirtualClock, tmp)
+            for k, v in launches.items():
+                total[k] += v
+            close_report(rep, batch, f"daemon chunk {chunk} vs batch "
+                         "serve", 0.0)
+            crep, _, ccounts, clines, *_ = daemon_run(
+                cpu_params, cfg, "cpu", frames, chunk, VirtualClock, tmp)
+            close_report(rep, crep, f"daemon chunk {chunk} cuda vs cpu",
+                         FORWARD_ATOL)
+            check(counts == ccounts, f"daemon chunk {chunk}: bus counts "
+                  f"{counts} != cpu {ccounts}")
+            check(len(lines) == len(clines) == len(rec.events)
+                  == sum(counts.values()),
+                  f"daemon chunk {chunk}: JSONL lines {len(lines)} / cpu "
+                  f"{len(clines)} / events {len(rec.events)}")
+            res = audit_recorder(rec)
+            check(res.ok, f"daemon chunk {chunk}: audit "
+                  f"{res.violations[:3]}")
+            trace = tmp / f"daemon-{chunk}.json"
+            write_chrome_trace(str(trace), rec)
+            back = events_from_chrome(json.loads(trace.read_text()))
+            check(audit_events(back).stats == res.stats,
+                  f"daemon chunk {chunk}: Chrome export audits otherwise")
+            n_mb = sum(1 for e in rec.events
+                       if e["kind"] == "stage" and e["stage"] == "detect")
+            want = sum((1 + g.replays) * g.captured.get("greedy_assign", 0)
+                       for g in graphs)
+            check(launches["batched_nms"] == n_mb > 0,
+                  f"daemon chunk {chunk}: NMS launches "
+                  f"{launches['batched_nms']} != micro-batches {n_mb}")
+            check(launches["greedy_assign"] == want > 0,
+                  f"daemon chunk {chunk}: assignment launches "
+                  f"{launches['greedy_assign']} != warm-ups + replays x "
+                  f"captured ({want})")
+            check(sum(g.replays for g in graphs) == rep["tracker_launches"],
+                  f"daemon chunk {chunk}: graph replays != tracker ticks")
+            bs = segment_cameras(rec.events)
+            shapes = sorted(g.shape for g in graphs)
+            check(len(graphs) <= len(bs)
+                  and all(s[1] in bs for s in shapes),
+                  f"daemon chunk {chunk}: {len(graphs)} tick graphs "
+                  f"{shapes} for segment camera counts {bs}")
+            print(f"[daemon] chunk {chunk}: {len(frames)} frames, "
+                  f"coverage {rep['coverage']}, migrations "
+                  f"{rep['migrations']}, bus {counts}, {len(lines)} JSONL "
+                  f"lines (== cpu), audit ok {res.stats}, Chrome export "
+                  f"audits the same; micro-batches {n_mb}, launches "
+                  f"{launches}; tick graphs {len(graphs)} (K, B, D) = "
+                  f"{shapes} for segment camera counts {bs}; host wall "
+                  f"{wall * 1e3:.2f} ms; == batch serve exactly, == cpu "
+                  f"within {FORWARD_ATOL}")
+            virtual = rep
+        rep, rec, counts, lines, launches, graphs, wall = daemon_run(
+            params, cfg, DEV, frames, DAEMON_CHUNKS[-1], WallClock, tmp)
+        for k, v in launches.items():
+            total[k] += v
+        close_report(rep, virtual, "daemon WallClock vs VirtualClock", 0.0)
+        span = frames[-1].t_arrival - frames[0].t_arrival
+        check(wall >= span, f"WallClock run took {wall} s < trace span "
+              f"{span} s")
+        print(f"[daemon] WallClock, chunk {DAEMON_CHUNKS[-1]}: report == "
+              f"the VirtualClock run's; wall {wall:.3f} s for a trace "
+              f"spanning {span:.3f} s")
+        ops.reset_launches()
+        events = tmp / "cli.jsonl"
+        out = run_main_quietly(launch_daemon.main, [
+            "--cameras", str(SHARD_CAMS), "--frames", str(SHARD_FRAMES),
+            "--shards", "2", "--watchdog", "--chunk", "4",
+            "--device", DEV, "--events", str(events)])
+        cli = ops.launches()
+        check("audit=ok" in out and "pending=0" in out,
+              f"launch.daemon: {out}")
+        check(cli["greedy_assign"] > 0, f"launch.daemon launched {cli}")
+        print("[daemon] launch.daemon --device cuda: " +
+              " | ".join(out.strip().splitlines()) + f"; launches {cli}")
+        trace = tmp / "serve.json"
+        ops.reset_launches()
+        out = run_main_quietly(launch_serve.main, [
+            "--payload", "frames", "--spmd", "--shards", "1",
+            "--cameras", "4", "--frames", "8", "--device", DEV,
+            "--trace", str(trace)])
+        srv = ops.launches()
+        check("spmd=True" in out and "audit=ok" in out,
+              f"launch.serve: {out}")
+        check(srv["batched_nms"] > 0 and srv["greedy_assign"] > 0,
+              f"launch.serve --spmd launched {srv}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = load_tool("check_trace_torch").main([str(trace)])
+        check(rc == 0, f"check_trace_torch: {buf.getvalue()}")
+        print("[daemon] launch.serve --payload frames --spmd --device cuda: "
+              + " | ".join(out.strip().splitlines()) + f"; launches {srv}; "
+              f"check_trace_torch: {buf.getvalue().strip()}")
+        for launches in (cli, srv):
+            for k, v in launches.items():
+                total[k] += v
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[daemon] launches over the card's runs: {total}")
+    return total
+
+
+def load_tool(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# ---------------------------------------------------------------- llm
+def _leaves(p):
+    if isinstance(p, dict):
+        for v in p.values():
+            yield from _leaves(v)
+    elif isinstance(p, (list, tuple)):
+        for v in p:
+            yield from _leaves(v)
+    else:
+        yield p
+
+
+def top2_margin(logits):
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return float(top[..., 0] - top[..., 1])
+
+
+#: faults planted in the decode step, one name of ``models.attention``
+#: replaced around the decode calls only (the prefills stay sound): the
+#: rope at the position before the token's, the token's K/V never written
+#: to the ring, and written one ring slot on.  Decode against prefill must
+#: read each above its tolerance
+DECODE_FAULTS = {
+    "rope at decode_pos - 1": (
+        "apply_rope", lambda f: lambda x, pos, *a: f(x, pos - 1, *a)),
+    "K/V not written to the ring": (
+        "_write_ring", lambda f: lambda cache, k, v, slot: {
+            "k": cache["k"].clone(), "v": cache["v"].clone()}),
+    "K/V written one slot on": (
+        "_write_ring", lambda f: lambda cache, k, v, slot: f(
+            cache, k, v, (slot + 1) % cache["k"].shape[1])),
+}
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """``models.attention`` with ``fault`` (a ``DECODE_FAULTS`` key, or
+    None for none) planted inside."""
+    if fault is None:
+        yield
+        return
+    name, make = DECODE_FAULTS[fault]
+    sound = getattr(llm_attention, name)
+    setattr(llm_attention, name, make(sound))
+    try:
+        yield
+    finally:
+        setattr(llm_attention, name, sound)
+
+
+def decode_gaps(cfg, params, prompt, steps, fault=None):
+    """Greedy decode of ``steps`` tokens from ``prompt``, with ``fault``
+    planted in the decode calls; at each step the decode logits against a
+    fresh prefill of the prompt plus the tokens so far, at its last
+    position.  Rows of (step, largest difference, the prefill's top-2
+    margin, greedy tokens equal, largest |logit|)."""
+    prefill = make_prefill_step(cfg, cache_len=LLM_CACHE_LEN)
+    decode = make_decode_step(cfg)
+    toks = torch.as_tensor(prompt, dtype=torch.long, device=params[
+        "final_norm"]["scale"].device)[None]
+    rows = []
+    with torch.no_grad():
+        logits, cache = prefill(params, {"tokens": toks})
+        for step in range(steps):
+            nxt = torch.argmax(logits, -1)[:, None]
+            toks = torch.cat([toks, nxt], 1)
+            with planted(fault):
+                logits, cache = decode(params, {
+                    "tokens": nxt, "cache": cache,
+                    "decode_pos": toks.shape[1] - 1})
+            fresh, _ = make_prefill_step(cfg)(params, {"tokens": toks})
+            rows.append((
+                step, float((logits.float() - fresh.float()).abs().max()),
+                top2_margin(fresh),
+                bool(torch.equal(torch.argmax(logits, -1),
+                                 torch.argmax(fresh, -1))),
+                float(fresh[..., :cfg.vocab_size].float().abs().max())))
+    return rows
+
+
+def decode_against_prefill(cfg, params, prompt, steps, tol, what):
+    """``decode_gaps`` of the sound decode: every step within ``tol``,
+    the greedy tokens equal wherever the prefill's top-2 margin exceeds
+    ``tol``.  Then each of ``DECODE_FAULTS`` planted: its largest
+    difference must exceed ``tol``.  Returns the sound largest difference
+    and each fault's."""
+    rows = decode_gaps(cfg, params, prompt, steps)
+    for step, err, margin, same, big in rows:
+        print(f"[llm] {what} step {step}: |decode - prefill| max "
+              f"{err:.6g}, prefill top-2 margin {margin:.6g}, |logits| "
+              f"max {big:.4g}, greedy {'equal' if same else 'DIFFERS'}")
+    faults = {}
+    for fault in DECODE_FAULTS:
+        errs = [r[1] for r in decode_gaps(cfg, params, prompt, steps, fault)]
+        faults[fault] = max(errs)
+        print(f"[llm] {what} planted fault '{fault}': |decode - prefill| "
+              f"max {max(errs):.6g} (steps: "
+              f"{', '.join(f'{e:.4g}' for e in errs)})")
+    for step, err, margin, same, _ in rows:    # every reading printed first
+        check(err <= tol, f"{what} step {step}: decode vs prefill "
+              f"{err} > {tol}")
+        check(same or margin <= tol, f"{what} step {step}: greedy "
+              f"token differs at a top-2 margin {margin} > {tol}")
+    for fault, worst in faults.items():
+        check(worst > tol, f"{what}: planted fault '{fault}' reads "
+              f"{worst} <= {tol}: the tolerance does not catch it")
+    return max(r[1] for r in rows), faults
+
+
+def profile_llm(cfg, params, toks, steps=5):
+    """One prefill and ``steps`` decode steps under ``torch.profiler``:
+    host wall and device busy a step, device events a step, and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    prefill = make_prefill_step(cfg, cache_len=LLM_CACHE_LEN)
+    decode = make_decode_step(cfg)
+    with torch.no_grad():
+        _, cache = prefill(params, {"tokens": toks})
+        for label, fn, n in (
+                ("prefill", lambda: prefill(params, {"tokens": toks}), 1),
+                ("decode", lambda: decode(params, {
+                    "tokens": toks[:, -1:], "cache": cache,
+                    "decode_pos": toks.shape[1]}), steps)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / n
+            rows = _device_rows(prof)
+            busy_ms = sum(r[0] for r in rows) / 1e3 / n
+            print(f"[profile llm {label}] wall {wall_ms:.3f} ms a step "
+                  f"(profiled), device busy {busy_ms:.3f} ms = "
+                  f"{busy_ms / wall_ms:.3f} of wall, "
+                  f"{sum(r[1] for r in rows) / n:.1f} device events a step")
+            for dev_us, count, key in rows[:8]:
+                print(f"[profile llm {label}] {dev_us / n / 1e3:9.4f} ms a "
+                      f"step {count // n:5d}x  {key[:90]}")
+
+
+def phase_llm(profile=False):
+    """Token serving of qwen3-4b at its full published width (bf16, random
+    weights from seed 0 on the card) through ``ServingEngine``; decode
+    against prefill at every step; then a 2-layer model of the same width
+    in float32 on the card and on the CPU from the same weights."""
+    cfg = get_config("qwen3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device=DEV).manual_seed(SEED),
+                        device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[llm] qwen3-4b full: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, "
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (padded {params['embed']['table'].shape[0]}),"
+          f" {cfg.param_dtype}: {n_params} parameters, {n_bytes} bytes, "
+          f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size - 1, LLM_PROMPT)
+                    .astype(np.int32), LLM_NEW, i / LLM_RATE)
+            for i in range(LLM_REQUESTS)]
+    eng = ServingEngine(cfg, params=params, n_replicas=4, scheduler="fcfs",
+                        cache_len=LLM_CACHE_LEN, device=DEV)
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(len(out["responses"]) == LLM_REQUESTS and not out["dropped"],
+          f"llm serve: {len(out['responses'])} responses, dropped "
+          f"{out['dropped']}")
+    for r in out["responses"]:
+        check(r.tokens.shape == (LLM_NEW,) and
+              ((0 <= r.tokens) & (r.tokens < cfg.vocab_size)).all(),
+              f"llm serve: rid {r.rid} tokens {r.tokens}")
+    prefill = make_prefill_step(cfg, cache_len=LLM_CACHE_LEN)
+    decode = make_decode_step(cfg)
+    toks = torch.as_tensor(reqs[0].tokens, dtype=torch.long,
+                           device=DEV)[None]
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": toks}),
+                             iters=10, warmup=2)
+        _, cache = prefill(params, {"tokens": toks})
+        nxt = toks[:, -1:]
+        decode_ms = cuda_ms(lambda: decode(params, {
+            "tokens": nxt, "cache": cache, "decode_pos": LLM_PROMPT}),
+            iters=20, warmup=2)
+    print(f"[llm] ServingEngine 4 replicas fcfs cache_len {LLM_CACHE_LEN}:"
+          f" {LLM_REQUESTS} requests of {LLM_PROMPT} tokens, {LLM_NEW} new "
+          f"each, served in {wall:.3f} s host wall; "
+          f"{out['throughput_rps']:.4f} req/s on the virtual clock, p50 "
+          f"{out['p50_latency'] * 1e3:.2f} ms, per-replica "
+          f"{out['per_replica']}; prefill {prefill_ms:.3f} ms, decode "
+          f"{decode_ms:.3f} ms a token (CUDA events); parameter bytes "
+          f"{n_bytes}, peak memory {peak} bytes")
+    print(f"[llm] first response tokens: "
+          f"{out['responses'][0].tokens.tolist()}")
+    if profile:
+        profile_llm(cfg, params, toks)
+    worst, faults = decode_against_prefill(
+        cfg, params, reqs[0].tokens, LLM_NEW, LLM_BF16_TOL, "qwen3-4b bf16")
+    print(f"[llm] bf16 decode vs prefill: largest difference {worst:.6g} "
+          f"(tolerance {LLM_BF16_TOL}); planted faults, least "
+          f"{min(faults.values()):.6g}")
+    del params, eng, cache
+    torch.cuda.empty_cache()
+    phase_llm_f32(cfg)
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def phase_llm_f32(full):
+    """Two layers of the full width in float32 on the card and on the CPU
+    from the same weights: logits within ``LLM_F32_TOL``, decode against
+    prefill on the card within it (and the planted faults above it), and
+    the served tokens equal, unless the first difference sits at a top-2
+    margin below the tolerance (printed)."""
+    cfg = full.replace(stages=dense_stages(2), dtype="float32",
+                       param_dtype="float32")
+    gpu = init_model(cfg, torch.Generator(device=DEV).manual_seed(SEED),
+                     device=DEV)
+    cpu = params_to(gpu, "cpu")
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, LLM_PROMPT).astype(
+        np.int32) for _ in range(LLM_F32_REQUESTS)]
+    with ieee_float32(), torch.no_grad():
+        toks = torch.from_numpy(np.stack(prompts)).long()
+        lg, _, _ = model_apply(gpu, cfg, {"tokens": toks.to(DEV)})
+        lc, _, _ = model_apply(cpu, cfg, {"tokens": toks})
+        V = cfg.vocab_size
+        err = float((lg[..., :V].cpu() - lc[..., :V]).abs().max())
+        print(f"[llm] 2-layer float32 full width, {len(prompts)} x "
+              f"{LLM_PROMPT} tokens: |cuda - cpu| logits max {err:.6g} "
+              f"(tolerance {LLM_F32_TOL}; logits up to "
+              f"{float(lc[..., :V].abs().max()):.4g})")
+        check(err <= LLM_F32_TOL, f"2-layer f32 logits cuda vs cpu {err}")
+        worst, faults = decode_against_prefill(
+            cfg, gpu, prompts[0], LLM_NEW, LLM_F32_TOL, "2-layer float32")
+        print(f"[llm] 2-layer float32 decode vs prefill on the card: "
+              f"largest difference {worst:.6g} (tolerance {LLM_F32_TOL}); "
+              f"planted faults, least {min(faults.values()):.6g}")
+        reqs = [Request(i, p, LLM_NEW, float(i)) for i, p in
+                enumerate(prompts)]
+        served = {}
+        for dev, p in ((DEV, gpu), ("cpu", cpu)):
+            served[dev] = ServingEngine(cfg, params=p, n_replicas=2,
+                                        scheduler="rr", device=dev,
+                                        cache_len=LLM_CACHE_LEN).serve(reqs)
+        n_equal = 0
+        for a, b, q in zip(served[DEV]["responses"],
+                           served["cpu"]["responses"], prompts):
+            if np.array_equal(a.tokens, b.tokens):
+                n_equal += 1
+                continue
+            k = int(np.argmax(a.tokens != b.tokens))
+            prefix = np.concatenate([q, b.tokens[:k]])
+            fresh, _ = make_prefill_step(cfg)(cpu, {
+                "tokens": torch.from_numpy(prefix).long()[None]})
+            margin = top2_margin(fresh)
+            print(f"[llm] 2-layer float32: rid {a.rid} tokens differ at "
+                  f"step {k} (cuda {a.tokens.tolist()}, cpu "
+                  f"{b.tokens.tolist()}), top-2 margin {margin:.6g}")
+            check(margin <= LLM_F32_TOL, f"rid {a.rid}: tokens differ at "
+                  f"a top-2 margin {margin} > {LLM_F32_TOL}")
+    print(f"[llm] 2-layer float32: served tokens cuda == cpu for "
+          f"{n_equal} of {len(reqs)} requests "
+          f"({[r.tokens.tolist() for r in served[DEV]['responses']]})")
+    check(served[DEV]["per_replica"] == served["cpu"]["per_replica"],
+          "2-layer float32: per-replica counts differ")
+
+
 def tf32_settings():
     """The legacy TF32 flags and, where this torch has them, the
     per-operation float32 precisions, as strings (a legacy flag that
@@ -2613,6 +3152,7 @@ def main() -> int:
     by_path["train"], trained = phase_train(
         cfg, anchors, profile="--profile" in sys.argv[1:])
     by_path["sharded"] = phase_sharded(trained, cfg)
+    by_path["daemon"] = phase_daemon(trained, cfg)
     for k, e in entries.items():
         e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
@@ -2627,6 +3167,7 @@ def main() -> int:
                                                   n_shards=2),
                       nvr_frames(SHARD_CAMS, SHARD_FRAMES, RATE_FPS)[0])
     phase_nan()
+    phase_llm(profile="--profile" in sys.argv[1:])
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(gpu_line())

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import ieee_float32, resolve_device
+from ..device import ieee_float32, params_to, resolve_device
 from ..kernels import ops as kops
 
 
@@ -105,15 +105,6 @@ def init_ssd(cfg: SSDConfig, generator: torch.Generator, device=None):
     p["head8"] = _conv_init(generator, 3, cfg.channels[-2], out_dim)
     p["head16"] = _conv_init(generator, 3, cfg.channels[-1], out_dim)
     return params_to(p, resolve_device(device))
-
-
-def params_to(p, device):
-    """The same parameter tree with every tensor on ``device``."""
-    if isinstance(p, dict):
-        return {k: params_to(v, device) for k, v in p.items()}
-    if isinstance(p, (list, tuple)):
-        return [params_to(v, device) for v in p]
-    return p.to(device)
 
 
 def params_from_numpy(tree, device=None):

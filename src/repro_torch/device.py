@@ -24,6 +24,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def params_to(p, device):
+    """The same parameter tree with every tensor on ``device``."""
+    if isinstance(p, dict):
+        return {k: params_to(v, device) for k, v in p.items()}
+    if isinstance(p, (list, tuple)):
+        return [params_to(v, device) for v in p]
+    return p.to(device)
+
+
 @contextmanager
 def ieee_float32():
     """Run float32 convolutions and matrix products in IEEE float32

@@ -1,0 +1,226 @@
+"""Attention mixers: GQA (full / sliding-window) with optional qk-norm
+(the port of the GQA half of the reference package's
+``models/attention.py``; multi-head latent attention is not ported yet).
+
+Three execution modes share one code path:
+  train   — full sequence, no cache
+  prefill — full sequence, returns a populated KV cache
+  decode  — single new token against an existing cache
+
+Caches are position-indexed ring buffers of length ``cache_len`` (= the
+sliding window for SWA variants, else the max sequence length).  As in
+the reference, attention is plain tensor code here (``sdpa`` and the
+chunked online softmax of ``_sdpa_chunked``), not the flash or decode
+kernels of ``repro_torch.kernels``.  Scores are taken in float32 and the
+probabilities cast back to the query dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import layers
+from .config import LayerSpec, ModelConfig
+from .rope import apply_rope
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------- core
+Q_CHUNK, K_CHUNK = 512, 1024
+
+
+def sdpa(q, k, v, mask, scale):
+    """q:(B,T,H,D) k/v:(B,S,KV,D) mask:(B,1,T,S) bool -> (B,T,H,D).
+
+    Plain scaled-dot-product attention.  With fewer KV heads than query
+    heads the query heads are grouped; K/V are never repeated."""
+    B, T, H, D = q.shape
+    KV = k.shape[2]
+    if KV != H:
+        G = H // KV
+        qg = q.reshape(B, T, KV, G, D)
+        s = torch.einsum("btkgd,bskd->bkgts", qg, k).float()
+        s = torch.where(mask[:, None], s * scale, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        out = torch.einsum("bkgts,bskd->btkgd", p, v)
+        return out.reshape(B, T, H, D)
+    scores = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def sdpa_masked(q, k, v, q_pos, k_pos, causal, window, k_valid, scale):
+    """Dispatch: the chunked online softmax (O(chunk^2) temporary memory
+    instead of O(T*S)) for long sequences, ``sdpa`` for short sequences
+    and decode.  The chunked path builds its masks per chunk from
+    positions, never at (T, S)."""
+    T, S = q.shape[1], k.shape[1]
+    if (T >= 2 * Q_CHUNK and S >= 2 * K_CHUNK and T % Q_CHUNK == 0
+            and S % K_CHUNK == 0 and k_valid is None):
+        return _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, scale)
+    mask = make_mask(q_pos, k_pos, causal, window, k_valid)
+    return sdpa(q, k, v, mask, scale)
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, scale):
+    """Online softmax over (Q_CHUNK, K_CHUNK) tiles, float32 running max,
+    sum and accumulator, the query heads grouped over the KV heads."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KV
+    outs = []
+    for qs in range(0, T, Q_CHUNK):
+        qb = q[:, qs:qs + Q_CHUNK].reshape(B, Q_CHUNK, KV, G, D)
+        qpb = q_pos[:, qs:qs + Q_CHUNK]
+        m = torch.full((B, KV, G, Q_CHUNK), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KV, G, Q_CHUNK), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, KV, G, Q_CHUNK, Dv), dtype=torch.float32,
+                          device=q.device)
+        for ks in range(0, S, K_CHUNK):
+            kb, vb = k[:, ks:ks + K_CHUNK], v[:, ks:ks + K_CHUNK]
+            s = torch.einsum("btkgd,bskd->bkgts", qb, kb).float() * scale
+            msk = make_mask(qpb, k_pos[:, ks:ks + K_CHUNK], causal, window)
+            s = torch.where(msk[:, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgts,bskd->bkgtd", p, vb.float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        # (B,KV,G,Tq,Dv) -> (B,Tq,KV,G,Dv)
+        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(B, T, H, Dv)
+
+
+def make_mask(q_pos, k_pos, causal, window, k_valid=None):
+    """q_pos:(B,T) k_pos:(B,S) -> bool (B,1,T,S)."""
+    q = q_pos[:, None, :, None]
+    k = k_pos[:, None, None, :]
+    m = torch.ones(torch.broadcast_shapes(q.shape, k.shape), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m = m & (k <= q)
+    if window is not None:
+        m = m & ((q - k) < window)
+    if k_valid is not None:
+        m = m & k_valid[:, None, None, :]
+    return m
+
+
+# ------------------------------------------------------------------ GQA
+def init_gqa(generator, cfg: ModelConfig):
+    H, KV, D, dm = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    dt = layers.torch_dtype(cfg.param_dtype)
+    p = {
+        "wq": layers.dense_init(generator, dm, H * D, dt),
+        "wk": layers.dense_init(generator, dm, KV * D, dt),
+        "wv": layers.dense_init(generator, dm, KV * D, dt),
+        "wo": layers.dense_init(generator, H * D, dm, dt),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = layers.init_rms_norm(D, dt, generator.device)
+        p["k_norm"] = layers.init_rms_norm(D, dt, generator.device)
+    return p
+
+
+def init_gqa_cache(cfg: ModelConfig, spec: LayerSpec, batch, cache_len,
+                   dtype, device):
+    KV, D = cfg.n_kv_heads, cfg.head_dim
+    win = spec.window or cfg.decode_window
+    L = min(cache_len, win) if win else cache_len
+    return {
+        "k": torch.zeros((batch, L, KV, D), dtype=dtype, device=device),
+        "v": torch.zeros((batch, L, KV, D), dtype=dtype, device=device),
+    }
+
+
+def _ring_positions(cache_len, next_pos, device=None):
+    """Positions stored at each ring slot after ``next_pos`` tokens have been
+    written (token i lives at slot i % cache_len).  Slot s holds the largest
+    position p < next_pos with p ≡ s (mod cache_len)."""
+    slots = torch.arange(cache_len, dtype=torch.int64, device=device)
+    last = next_pos - 1
+    k_pos = last - torch.remainder(last - slots, cache_len)
+    return k_pos, k_pos >= 0
+
+
+def apply_gqa(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
+              mode="train", cache=None, decode_pos=None):
+    B, T, _ = x.shape
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, T, H, D)
+    k = (x @ p["wk"]).reshape(B, T, KV, D)
+    v = (x @ p["wv"]).reshape(B, T, KV, D)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
+        k = layers.rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope)
+    scale = D ** -0.5
+    window = spec.window or (cfg.decode_window if mode != "train"
+                             else spec.window)
+
+    new_cache = None
+    if mode in ("train", "prefill"):
+        out = sdpa_masked(q, k, v, positions, positions, cfg.causal,
+                          window, None, scale)
+        if mode == "prefill":
+            new_cache = _fill_cache(cache, k, v, T)
+    else:  # decode: T == 1, append at decode_pos then attend over the ring
+        L = cache["k"].shape[1]
+        new_cache = _write_ring(cache, k, v, decode_pos % L)
+        ck, cv = new_cache["k"], new_cache["v"]
+        k_pos, valid = _ring_positions(L, decode_pos + 1, x.device)
+        k_pos = k_pos[None].expand(B, L)
+        valid = valid[None].expand(B, L)
+        out = sdpa_masked(q, ck, cv, positions, k_pos, cfg.causal, window,
+                          valid, scale)
+
+    y = out.reshape(B, T, H * D) @ p["wo"]
+    return y, new_cache
+
+
+def _write_ring(cache, k, v, slot):
+    """A copy of the ring with the decode token's K/V at ``slot``."""
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    ck[:, slot:slot + 1] = k
+    cv[:, slot:slot + 1] = v
+    return {"k": ck, "v": cv}
+
+
+def _fill_cache(cache, k, v, T):
+    """Write the last ``cache_len`` of the prefill K/V into the ring so that
+    token i sits at slot i %% cache_len (matching decode's ring indexing)."""
+    L = cache["k"].shape[1]
+    if T <= L:
+        ck, cv = cache["k"].clone(), cache["v"].clone()
+        ck[:, :T] = k
+        cv[:, :T] = v
+        return {"k": ck, "v": cv}
+    # keep the trailing window, placed at its ring slots
+    shift = (T - L) % L
+    return {"k": torch.roll(k[:, T - L:], shift, dims=1),
+            "v": torch.roll(v[:, T - L:], shift, dims=1)}
+
+
+# ------------------------------------------------------------------ facade
+# multi-head latent attention is not ported yet: models.transformer's
+# check_ported refuses a cfg.mla config before any of these is reached
+def init_attention(generator, cfg: ModelConfig):
+    return init_gqa(generator, cfg)
+
+
+def init_attention_cache(cfg, spec, batch, cache_len, dtype, device):
+    return init_gqa_cache(cfg, spec, batch, cache_len, dtype, device)
+
+
+def apply_attention(p, cfg, spec, x, positions, mode="train", cache=None,
+                    decode_pos=None):
+    return apply_gqa(p, cfg, spec, x, positions, mode=mode, cache=cache,
+                     decode_pos=decode_pos)

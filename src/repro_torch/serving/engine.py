@@ -1,6 +1,8 @@
 """NVR detection serving: the paper's multi-model parallelism as parallel
 replica executors behind one scheduler (the port of the reference
-package's ``serving/engine.py`` ``DetectionEngine`` path).
+package's ``serving/engine.py``).  ``DetectionEngine`` is the
+video-frame payload path; ``ServingEngine`` carries the same replica
+machinery for token (LLM prefill + decode) payloads.
 
 Frames stream in, the paper's schedulers (FCFS / RR / weighted /
 proportional) pick a replica, the detect + NMS fast path runs in
@@ -36,8 +38,25 @@ import torch
 
 from ..core.scheduler import make_scheduler
 from ..device import resolve_device
+from ..models import init_model
+from ..models.config import ModelConfig
+from ..obs.metrics import detection_latency_keys
 from ..obs.trace import NULL_RECORDER
+from ..runtime.steps import make_decode_step, make_prefill_step
 from .pipeline import TickPipeline, bucket, chunk_size, confirmed_ids
+
+
+@dataclass
+class Request:
+    """Token-payload request for ``ServingEngine``: a prompt of
+    ``tokens`` (``(prompt_len,)`` int32) arriving at virtual time
+    ``t_arrival``, asking for ``max_new_tokens`` of greedy decode.
+    ``rid`` is the caller-assigned unique request id that responses
+    are matched and ordered by."""
+    rid: int
+    tokens: np.ndarray            # (prompt_len,)
+    max_new_tokens: int = 8
+    t_arrival: float = 0.0
 
 
 @dataclass
@@ -82,6 +101,20 @@ class DetectionResponse:
     track_ids: Optional[np.ndarray] = None
     stream_id: int = 0            # camera this frame belongs to
     seq: int = -1                 # per-stream arrival index of the frame
+
+
+@dataclass
+class Response:
+    """Token-payload response from ``ServingEngine.serve``: the greedy
+    decode ``tokens`` for request ``rid``, the ``replica`` that served
+    it, its virtual-clock ``t_start``/``t_done`` window and the
+    measured wall ``service_s``."""
+    rid: int
+    tokens: np.ndarray            # generated ids
+    replica: int
+    t_start: float
+    t_done: float
+    service_s: float
 
 
 class ReplicaExecutor:
@@ -143,6 +176,146 @@ def _per_replica_counts(replicas, responses) -> Dict[int, int]:
         if resp.replica >= 0:
             counts[resp.replica] += 1
     return counts
+
+
+class ServingEngine:
+    """Token-payload serving: the paper's parallel-replica scheduling
+    applied to an LLM decode loop.
+
+    ``n_replicas`` logical replicas share one set of prefill/decode
+    steps on ``device`` (None: ``cuda``, raising where no CUDA device
+    exists); each request's REAL measured wall time, scaled by the
+    replica's ``replica_speeds`` multiplier (heterogeneous pools),
+    drives the same virtual-clock schedulers as the edge simulator
+    (``scheduler`` in fcfs/rr/wrr/proportional).  ``drop_when_busy=True``
+    reproduces the paper's load shedding: a request arriving with every
+    replica busy is dropped instead of queued.  ``serve`` returns
+    responses in arrival order plus throughput/latency/per-replica
+    accounting.  ``params`` are the port's model parameters
+    (``models.init_model`` or ``models.params_from_numpy``); None draws
+    them from ``seed``."""
+
+    def __init__(self, cfg: ModelConfig, params=None, n_replicas: int = 4,
+                 scheduler: str = "fcfs", cache_len: int = 128,
+                 replica_speeds: Optional[Sequence[float]] = None,
+                 drop_when_busy: bool = False, seed: int = 0,
+                 recorder=None, device=None):
+        if n_replicas < 1:
+            raise ValueError(f"n_replicas must be >= 1, got {n_replicas}: "
+                             "an empty replica pool can never serve")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = params if params is not None else init_model(
+            cfg, torch.Generator().manual_seed(seed), device=self.device)
+        self.cache_len = cache_len
+        self.prefill = make_prefill_step(cfg, cache_len=cache_len)
+        self.decode = make_decode_step(cfg)
+        speeds = list(replica_speeds or [1.0] * n_replicas)
+        self.replicas = [ReplicaExecutor(i, s) for i, s in enumerate(speeds)]
+        self.scheduler = make_scheduler(scheduler, self.replicas,
+                                        host_overhead=1e-4)
+        # None -> the shared no-op recorder; the scheduler shares the
+        # same recorder for dispatch events
+        self.recorder = recorder if recorder is not None else NULL_RECORDER
+        self.scheduler.recorder = self.recorder
+        self.drop_when_busy = drop_when_busy
+        self._warm = False
+
+    # ------------------------------------------------------------- compute
+    @torch.no_grad()
+    def _generate(self, req: Request) -> tuple[np.ndarray, float]:
+        t0 = time.perf_counter()
+        toks = torch.as_tensor(np.asarray(req.tokens, np.int64),
+                               device=self.device)[None]
+        logits, cache = self.prefill(self.params, {"tokens": toks})
+        out = []
+        pos = toks.shape[1]
+        nxt = torch.argmax(logits, -1)[:, None]
+        for _ in range(req.max_new_tokens):
+            out.append(int(nxt[0, 0]))
+            logits, cache = self.decode(self.params, {
+                "tokens": nxt, "cache": cache, "decode_pos": pos})
+            nxt = torch.argmax(logits, -1)[:, None]
+            pos += 1
+        if self.device.type == "cuda":    # the wall covers the device work
+            torch.cuda.synchronize(self.device)
+        return np.array(out, np.int32), time.perf_counter() - t0
+
+    def warmup(self, prompt_len: int = 16):
+        req = Request(-1, np.zeros(prompt_len, np.int32), 2)
+        _, wall = self._generate(req)
+        for r in self.replicas:
+            r._last_wall = wall
+        self._warm = True
+
+    def reset(self):
+        """Clear per-serve virtual-clock state (replica ``busy_until`` /
+        processed counts / EWMAs and the scheduler's round bookkeeping)
+        so repeated ``serve()`` calls are independent.  Delegates to
+        ``ServingRuntime.reset_engines``."""
+        from .runtime import ServingRuntime
+        ServingRuntime.reset_engines(self)
+
+    # ------------------------------------------------------------- serving
+    def serve(self, requests: Sequence[Request]) -> Dict:
+        """Run a batch of requests through the parallel-replica pipeline.
+        Returns responses (arrival order), dropped ids, and throughput
+        and latency metrics (``p50_latency``, ``p95_latency``,
+        ``p99_latency``, ``latency_hist``), as the reference does.  Each
+        call is independent: per-serve virtual-clock state is reset on
+        entry, and ``per_replica`` counts this call's placements."""
+        if not requests:                  # empty report, like DetectionEngine
+            empty = detection_latency_keys([])
+            return {"responses": [], "dropped": [], "throughput_rps": 0.0,
+                    "p50_latency": 0.0, "p95_latency": 0.0,
+                    "p99_latency": 0.0, "latency_hist": empty["latency_hist"],
+                    "per_replica": {r.idx: 0 for r in self.replicas}}
+        if not self._warm:
+            self.warmup(max(len(r.tokens) for r in requests))
+        self.reset()
+        rec = self.recorder
+        responses: List[Response] = []
+        dropped: List[int] = []
+        for req in sorted(requests, key=lambda r: r.t_arrival):
+            if rec.enabled:
+                rec.record("arrive", req.t_arrival, rid=req.rid,
+                           stream=0, seq=req.rid)
+            gen, wall = self._generate(req)       # real compute, measured
+            for r in self.replicas:               # this request would cost
+                r._last_wall = wall               # wall x speed on replica r
+            if self.drop_when_busy:
+                a = self.scheduler.assign(req.rid, req.t_arrival)
+            else:
+                # raises NoHealthyExecutorError when nothing can ever
+                # take the request; None only when a fault kills the
+                # bounded retry chain
+                a = self.scheduler.blocking_assign(req.rid, req.t_arrival)
+            if a is None:
+                dropped.append(req.rid)
+                if rec.enabled:
+                    rec.record("drop", req.t_arrival, rid=req.rid,
+                               stream=0, seq=req.rid)
+                continue
+            responses.append(Response(req.rid, gen, a.executor_idx,
+                                      a.t_start, a.t_done, wall))
+        responses.sort(key=lambda r: r.rid)       # sequence synchronizer
+        if rec.enabled:
+            clk = 0.0                   # rid-order release clock (one lane)
+            for r in responses:
+                clk = max(clk, r.t_done)
+                rec.record("emit", clk, rid=r.rid, stream=0, seq=r.rid)
+        makespan = max((r.t_done for r in responses), default=0.0)
+        lk = detection_latency_keys(responses)
+        return {
+            "responses": responses,
+            "dropped": dropped,
+            "throughput_rps": len(responses) / max(makespan, 1e-9),
+            "p50_latency": lk["p50_latency"],
+            "p95_latency": lk["p95_latency"],
+            "p99_latency": lk["p99_latency"],
+            "latency_hist": lk["latency_hist"],
+            "per_replica": _per_replica_counts(self.replicas, responses),
+        }
 
 
 class DetectionEngine:

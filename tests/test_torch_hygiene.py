@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,7 +16,9 @@ from repro_torch.kernels import build, ops
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tools" / "check_trace_torch.py",
+    REPO / "examples" / "video_analytics_torch.py",
+    REPO / "examples" / "llm_serving_torch.py"]
 
 
 def _imported_modules(path):
@@ -45,12 +48,22 @@ def test_serving_imports_with_jax_blocked():
             "repro_torch.core.parallel, repro_torch.tracking.interpolate, "
             "repro_torch.sharding, repro_torch.sharding.serving_rules, "
             "repro_torch.serving.faults, repro_torch.serving.supervisor, "
-            "repro_torch.serving.sharded; "
+            "repro_torch.serving.sharded, repro_torch.serving.events, "
+            "repro_torch.obs.audit, repro_torch.obs.export, "
+            "repro_torch.launch.daemon, repro_torch.launch.serve, "
+            "repro_torch.models, repro_torch.models.attention, "
+            "repro_torch.configs, repro_torch.runtime, "
+            "repro_torch.runtime.steps, runpy; "
+            "[repro_torch.configs.get_config(a, preset='smoke') "
+            "for a in repro_torch.configs.ported_archs()]; "
+            "runpy.run_path(sys.argv[1]); "
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env=env, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(REPO / "tools" / "check_trace_torch.py")],
+                         capture_output=True, text=True, env=env,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
@@ -127,6 +140,89 @@ def test_train_detector_without_cuda_raises(monkeypatch):
     _, params, _ = ex.train_detector(video, 1, batch=1, device="cpu",
                                      log=lambda s: None)
     assert params["head8"]["w"].device.type == "cpu"
+
+
+def test_serving_and_obs_export_every_reference_name():
+    """The port's ``serving`` and ``obs`` packages export every name the
+    reference's do (``roi_second_pass`` included), less the names
+    ``ROADMAP.md`` lists as waiting: none is left."""
+    import repro.obs
+    import repro.serving
+    import repro_torch.obs
+    import repro_torch.serving
+    waiting = set()
+    for ref, port in ((repro.serving, repro_torch.serving),
+                      (repro.obs, repro_torch.obs)):
+        assert set(ref.__all__) - set(port.__all__) == waiting
+        assert all(hasattr(port, name) for name in port.__all__)
+
+
+def test_token_serving_without_cuda_raises(monkeypatch):
+    """``ServingEngine``, ``init_model``, ``init_cache`` and
+    ``params_from_numpy`` place the model on ``cuda`` unless the caller
+    passes ``device="cpu"``."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import params_to
+    from repro_torch.models import init_cache, init_model
+    from repro_torch.models import params_from_numpy as llm_from_numpy
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("qwen3-4b", preset="smoke").replace(
+        stages=get_config("qwen3-4b", preset="smoke").stages[:1])
+    gen = torch.Generator().manual_seed(0)
+    params = init_model(cfg, gen, device="cpu")
+    tree = _to_numpy(params)
+    tree["stages"] = [{"layers": [_stack(s["layers"])]}
+                      for s in tree["stages"]]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: ServingEngine(cfg, params=params, **kw),
+                 lambda **kw: ServingEngine(cfg, **kw),
+                 lambda **kw: init_model(cfg, gen, **kw),
+                 lambda **kw: init_cache(cfg, 1, 8, **kw),
+                 lambda **kw: llm_from_numpy(cfg, tree, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(device="cuda")
+    assert ServingEngine(cfg, params=params,
+                         device="cpu").device.type == "cpu"
+    assert params_to(llm_from_numpy(cfg, tree, device="cpu"),
+                     "cpu")["embed"]["table"].device.type == "cpu"
+
+
+def _to_numpy(p):
+    if isinstance(p, dict):
+        return {k: _to_numpy(v) for k, v in p.items()}
+    if isinstance(p, list):
+        return [_to_numpy(v) for v in p]
+    return p.numpy()
+
+
+def _stack(layers):
+    """Per-layer dicts stacked on a leading repeats axis, as the
+    reference's stages hold them."""
+    if isinstance(layers[0], dict):
+        return {k: _stack([d[k] for d in layers]) for k in layers[0]}
+    return np.stack(layers)
+
+
+@pytest.mark.parametrize("argv", [
+    ["daemon", "--cameras", "2", "--frames", "2"],
+    ["serve", "--payload", "frames", "--cameras", "2", "--frames", "2"],
+    ["serve", "--payload", "frames", "--cameras", "2", "--frames", "2",
+     "--spmd"],
+    ["serve", "--payload", "tokens", "--requests", "1", "--new-tokens", "1"],
+], ids=["daemon", "serve-frames", "serve-frames-spmd", "serve-tokens"])
+def test_launchers_default_to_cuda(monkeypatch, capsys, argv):
+    """``python -m repro_torch.launch.daemon`` and ``.serve`` run on
+    ``cuda`` unless given ``--device cpu``: without CUDA they raise."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.launch.{argv[0]}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(argv[1:] + extra)
+    mod.main(argv[1:] + ["--device", "cpu"])
+    assert capsys.readouterr().out
 
 
 def _entry_points():

@@ -230,3 +230,40 @@ def test_rwkv_bound_counts_float32_operations_in_either_type(dtype):
     assert bound == pytest.approx(7 * 4 * 40 * 2048 * 64 ** 2 /
                                   smoke.FP32_OPS_PER_S * 1e3)
     assert round(bound, 4) == 0.1402
+
+
+@pytest.fixture(scope="module")
+def qwen3_smoke_f32():
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    cfg = get_config("qwen3-4b", preset="smoke").replace(
+        dtype="float32", param_dtype="float32")
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size - 1, 16)
+    return cfg, params, prompt
+
+
+@pytest.mark.parametrize("fault", [None, *smoke.DECODE_FAULTS])
+def test_decode_against_prefill_catches_planted_faults(qwen3_smoke_f32,
+                                                       fault):
+    """The smoke's decode-against-prefill reading on the qwen3-4b smoke
+    preset in float32 on the CPU: the sound decode within
+    ``LLM_F32_TOL`` with the greedy tokens equal, each of
+    ``DECODE_FAULTS`` planted (rope off by one, the token's K/V not
+    written, written one slot on) above it, and ``models.attention``
+    sound again afterwards."""
+    from repro_torch.models import attention
+    from repro_torch.models.rope import apply_rope
+    cfg, params, prompt = qwen3_smoke_f32
+    sound = attention._write_ring
+    rows = smoke.decode_gaps(cfg, params, prompt, smoke.LLM_NEW, fault)
+    worst = max(r[1] for r in rows)
+    if fault is None:
+        assert worst <= smoke.LLM_F32_TOL
+        assert all(r[3] for r in rows)
+    else:
+        assert worst > smoke.LLM_F32_TOL
+    assert attention.apply_rope is apply_rope
+    assert attention._write_ring is sound

@@ -149,7 +149,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``launch.daemon``'s and ``launch.serve --payload frames --spmd
    --trace``'s ``main`` on the card, each ending with audit ok, and
    ``tools/check_trace_torch.py`` exiting 0 on the written trace;
-14. token serving (``[llm]``, last): qwen3-4b at its full published
+14. token serving (``[llm]``): qwen3-4b at its full published
    configuration (36 layers, d_model 2560, 32 heads, 8 KV heads,
    head_dim 128, d_ff 9728, vocab 151936 padded to 152064, bf16), random
    weights from seed 0 drawn on the card; a ``ServingEngine`` (4
@@ -167,7 +167,39 @@ Phases, in order; any failure exits non-zero and prints no result:
    weights: logits within ``LLM_F32_TOL``, decode against prefill on the
    card within it and each planted fault above it, and the served tokens
    equal unless the first difference sits at a top-2 margin below it
-   (printed).
+   (printed);
+15. the other families at their published widths (``[llm-rwkv]``,
+   ``[llm-jamba]``, ``[llm-deepseek]``, ``[llm-grok]``, in that order),
+   each cut in depth only where one card cannot hold it
+   (``FAMILY_CUTS``, printed as ``reduced``: rwkv6-3b whole, one
+   8-layer period of jamba, deepseek-v3's 3 dense layers, 1 MoE layer
+   and its MTP head, 2 layers of grok-1), bf16 weights drawn on the card
+   from seed 0 (expert stacks one expert at a time): parameters, bytes
+   and peak memory; ``[llm]``'s workload through ``ServingEngine`` (req/s
+   on the virtual clock, ms a prefill and a decode token by CUDA
+   events); the (token, expert) pairs the served prefills dropped at the
+   published capacity factor (a one-token decode must drop none); decode
+   against a fresh prefill at ``FAMILY_BF16_TOL`` with the capacity
+   lifted to E / k (no drop) and the prefill routed as the served path
+   was (``forced_routing``; the prefill's own routing printed per layer
+   and step, its choice for the new token agreeing in more than half of
+   the steps), each of the family's ``FAMILY_FAULTS`` (the latent ring
+   slot not written or one on, the Mamba state or conv window not
+   carried, the RWKV state or token shift not carried, GQA's three)
+   above it; after rwkv6-3b's serve, ``[rwkv-model]``: its layer 0's
+   float32 r, k, v, w, u on a served prompt through ``ops.rwkv_scan``
+   (table row 8's kernel, one launch, counted from zero), within
+   ``F32_TOL`` of the model's own recurrence (five times that for the
+   state); then the float32 cuts of ``FAMILY_F32`` at full width (two
+   rwkv6-3b layers, deepseek-v3's first two layers with the MTP head, a
+   Mamba layer and an attention layer of jamba, each with a dense ffn)
+   on the card against the CPU from the same weights within
+   ``LLM_F32_TOL`` (logits, MTP logits), and decode against prefill on
+   the card within it with the faults above it.  A float32 copy of a
+   full-width MoE layer is left out: it would take 11-45 GB on the host;
+16. ``[llm-smoke]`` (last): each family's smoke preset in float32 on the
+   card against the CPU from the same weights, logits (and MTP logits)
+   within ``LLM_F32_TOL``, every routing decision equal.
 
 ``--profile`` adds one more serve of each path (the NVR serve staged and
 fused) under ``torch.profiler``
@@ -188,9 +220,10 @@ share of the bound,
 and, where one PyTorch call computes the same function, that call's time
 (SDPA for the two attention kernels; used for comparison only).
 
-``[llm]`` launches none of the eight kernels: the model code computes
-attention with ``models.attention.sdpa`` in plain tensor code, as the
-reference's does.
+The token phases launch none of the eight kernels: the model code
+computes attention with ``models.attention.sdpa``, the Mamba scan and
+the RWKV recurrence in plain tensor code, as the reference's does;
+``[rwkv-model]``'s one scan launch is a check beside the model.
 
 The third-to-last line is a JSON object with one entry per kernel, the
 second-to-last the card's name and power limit, the last
@@ -200,6 +233,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import gc
 import importlib.util
 import io
 import json
@@ -229,9 +264,14 @@ from repro_torch.launch import daemon as launch_daemon  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.daemon import (ServingDaemon, VirtualClock,  # noqa: E402,E501
                                        WallClock)
-from repro_torch.models import (dense_stages, init_model,  # noqa: E402
-                                model_apply)
+from repro_torch.models import (LayerSpec, Stage,  # noqa: E402
+                                dense_stages, init_model, model_apply)
 from repro_torch.models import attention as llm_attention  # noqa: E402
+from repro_torch.models import layers as llm_layers  # noqa: E402
+from repro_torch.models import mamba as llm_mamba  # noqa: E402
+from repro_torch.models import moe as llm_moe  # noqa: E402
+from repro_torch.models import rwkv as llm_rwkv  # noqa: E402
+from repro_torch.models import transformer as llm_transformer  # noqa: E402,E501
 from repro_torch.obs import (TraceRecorder, audit_events,  # noqa: E402
                              audit_recorder, events_from_chrome,
                              write_chrome_trace)
@@ -387,6 +427,42 @@ LLM_F32_REQUESTS = 2            # the 2-layer float32 model, cuda vs cpu
 # up to 4.06; each fault at least 0.340 at every step): 2.3x the sound one
 LLM_BF16_TOL = 0.125
 LLM_F32_TOL = 1e-4              # |cuda - cpu| logits, float32, 2 layers
+#: the families after [llm], each at its published widths, cut in depth
+#: only where one 80 GB card cannot hold it: the repeats of each stage
+#: and what the cut leaves
+FAMILY_CUTS = {
+    "rwkv6-3b": ((32,), "nothing: all 32 layers"),
+    "jamba-v0.1-52b": ((1,), "repeats 4 -> 1: one 8-layer period, 7 Mamba "
+                       "+ 1 attention, 4 MoE + 4 dense ffns"),
+    "deepseek-v3-671b": ((3, 1), "MoE stage 58 -> 1 layer; the dense "
+                         "stage whole (3 layers); the MTP head kept"),
+    "grok-1-314b": ((2,), "64 -> 2 layers"),
+}
+#: |decode - prefill| logits in bf16 for each family, by the rule fixed in
+#: PERF.md (section 6) before the card's readings: qwen3-4b's 0.125
+#: where the sound decode reads at most 0.0625 and every fault at least
+#: 0.25, else the geometric mean of the sound reading and the least fault
+#: (H100: rwkv6-3b 0 against 5.52, deepseek-v3 0.0469 against 0.426,
+#: grok-1 0.0391 against 0.770; jamba 0.118164 against 0.792969).  Jamba
+#: reads the most: the reference's Mamba decode computes its conv in
+#: float32, its prefill in bf16 (with the decode's conv as the prefill's,
+#: ``VARIANTS``, its first layer reads 0), and its MoE expert products
+#: round differently at C = 4 and C = T slots, over 8 layers
+FAMILY_BF16_TOL = {"rwkv6-3b": 0.125, "jamba-v0.1-52b": 0.306,
+                   "deepseek-v3-671b": 0.125, "grok-1-314b": 0.125}
+#: the float32 card-against-CPU models at full width: a stage cut of the
+#: published config (the MTP head kept where the config has one)
+FAMILY_F32 = {
+    "rwkv6-3b": (lambda c: (Stage(c.stages[0].pattern, 2),),
+                 "2 layers (rwkv + channel mix)"),
+    "jamba-v0.1-52b": (lambda c: (Stage((LayerSpec("mamba", "dense"),
+                                         LayerSpec("attn", "dense")), 1),),
+                       "a Mamba + dense ffn layer and an attention + dense "
+                       "ffn layer"),
+    "deepseek-v3-671b": (lambda c: (Stage(c.stages[0].pattern, 2),),
+                         "the first 2 layers (MLA + dense ffn) and the MTP "
+                         "head"),
+}
 # the reference's float32 kernel tolerance (tests/test_kernels.py), rtol =
 # atol, five times that for the RWKV state; a bfloat16 case is held to it
 # before its one final rounding (hold_to_plain)
@@ -2831,99 +2907,313 @@ def top2_margin(logits):
     return float(top[..., 0] - top[..., 1])
 
 
-#: faults planted in the decode step, one name of ``models.attention``
-#: replaced around the decode calls only (the prefills stay sound): the
-#: rope at the position before the token's, the token's K/V never written
-#: to the ring, and written one ring slot on.  Decode against prefill must
-#: read each above its tolerance
+#: faults planted in the decode step, one name of a model module replaced
+#: around the decode calls only (the prefills stay sound): (module, name,
+#: the replacement made from the sound function).  Decode against prefill
+#: must read each above its tolerance.  The GQA ring: the rope at the
+#: position before the token's, the token's K/V never written to the
+#: ring, and written one ring slot on
 DECODE_FAULTS = {
     "rope at decode_pos - 1": (
-        "apply_rope", lambda f: lambda x, pos, *a: f(x, pos - 1, *a)),
+        llm_attention, "apply_rope",
+        lambda f: lambda x, pos, *a: f(x, pos - 1, *a)),
     "K/V not written to the ring": (
-        "_write_ring", lambda f: lambda cache, k, v, slot: {
+        llm_attention, "_write_ring", lambda f: lambda cache, k, v, slot: {
             "k": cache["k"].clone(), "v": cache["v"].clone()}),
     "K/V written one slot on": (
-        "_write_ring", lambda f: lambda cache, k, v, slot: f(
+        llm_attention, "_write_ring", lambda f: lambda cache, k, v, slot: f(
             cache, k, v, (slot + 1) % cache["k"].shape[1])),
+}
+#: multi-head latent attention: the latent ring slot not written, and
+#: written one slot on (with the rope fault above)
+MLA_FAULTS = {
+    "latent not written": (
+        llm_attention, "_write_latent",
+        lambda f: lambda cache, ckv, kpe, slot: {
+            "ckv": cache["ckv"].clone(), "kpe": cache["kpe"].clone()}),
+    "latent written one slot on": (
+        llm_attention, "_write_latent",
+        lambda f: lambda cache, ckv, kpe, slot: f(
+            cache, ckv, kpe, (slot + 1) % cache["ckv"].shape[1])),
+}
+#: Mamba: the SSM state not carried (the prefill's stays), and the conv
+#: window not shifted (the new token never enters it)
+MAMBA_FAULTS = {
+    "SSM state not carried": (
+        llm_mamba, "_carry",
+        lambda f: lambda cache, window, h: f(cache, window, cache["ssm"])),
+    "conv window not shifted": (
+        llm_mamba, "_carry",
+        lambda f: lambda cache, window, h: {"conv": cache["conv"],
+                                            "ssm": h}),
+}
+#: RWKV-6: the wkv state not carried, and the token shift not carried
+RWKV_FAULTS = {
+    "wkv state not carried": (
+        llm_rwkv, "_carry",
+        lambda f: lambda cache, xt, S: f(cache, xt, cache["wkv"])),
+    "token shift not carried": (
+        llm_rwkv, "_carry",
+        lambda f: lambda cache, xt, S: f(cache, cache["tm_shift"], S)),
+}
+FAULTS = {**DECODE_FAULTS, **MLA_FAULTS, **MAMBA_FAULTS, **RWKV_FAULTS}
+
+
+def _mamba_decode_conv_as_prefill(sound):
+    """The Mamba decode step with its conv as the prefill computes it:
+    ``_causal_conv`` over the window in the activation dtype, its last
+    position, the silu in that dtype; the reference's decode computes the
+    conv and silu in float32 and casts after.  The rest of the step as
+    the port's."""
+    silu = torch.nn.functional.silu
+
+    def step(p, cfg, x, cache):
+        m = cfg.mamba
+        x_in, z = torch.chunk(x[:, 0] @ p["in_proj"], 2, dim=-1)
+        window = torch.cat([cache["conv"], x_in[:, None]], 1)
+        x_c = silu(llm_mamba._causal_conv(window, p["conv_w"], p["conv_b"],
+                                          m.d_conv)[:, -1])
+        A_bar, Bx, C = llm_mamba._ssm_inputs(p, cfg, x_c)
+        h = A_bar * cache["ssm"] + Bx
+        y = torch.einsum("bds,bs->bd", h, C).to(x.dtype)
+        y = (y + p["Dskip"].to(x.dtype) * x_c) * silu(z)
+        return (y @ p["out_proj"])[:, None], llm_mamba._carry(cache, window,
+                                                              h)
+    return step
+
+
+#: not faults: variants of the decode step that decode against prefill
+#: reads to find where a sound gap comes from.  The Mamba conv's only
+#: difference between the modes is its dtype, so this one reads how much
+#: of jamba's bf16 gap that makes
+VARIANTS = {
+    "Mamba decode conv in bf16, as the prefill's": (
+        llm_mamba, "_decode_step", _mamba_decode_conv_as_prefill),
+}
+#: the faults each family's decode must catch
+FAMILY_FAULTS = {
+    "rwkv6-3b": tuple(RWKV_FAULTS),
+    "jamba-v0.1-52b": tuple(MAMBA_FAULTS),
+    "deepseek-v3-671b": ("rope at decode_pos - 1", *MLA_FAULTS),
+    "grok-1-314b": tuple(DECODE_FAULTS),
 }
 
 
 @contextlib.contextmanager
 def planted(fault):
-    """``models.attention`` with ``fault`` (a ``DECODE_FAULTS`` key, or
-    None for none) planted inside."""
+    """The model module of ``fault`` (a ``FAULTS`` or ``VARIANTS`` key,
+    or None for none) with the fault planted inside."""
     if fault is None:
         yield
         return
-    name, make = DECODE_FAULTS[fault]
-    sound = getattr(llm_attention, name)
-    setattr(llm_attention, name, make(sound))
+    mod, name, make = {**FAULTS, **VARIANTS}[fault]
+    sound = getattr(mod, name)
+    setattr(mod, name, make(sound))
     try:
         yield
     finally:
-        setattr(llm_attention, name, sound)
+        setattr(mod, name, sound)
+
+
+@contextlib.contextmanager
+def moe_log():
+    """Record every MoE routing inside: ``log["route"]`` gets, per call of
+    ``models.moe.route`` (one an MoE layer and batch row, in execution
+    order), the experts ``idx`` (T, k) and each token's margin between
+    its k-th and (k+1)-th router score; ``log["drops"]`` gets, per
+    dispatch, (tokens, (token, expert) pairs dropped for capacity)."""
+    log = {"route": [], "drops": []}
+    route, dispatch = llm_moe.route, llm_moe._dispatch_tables
+
+    def logged_route(x_flat, router_w, m):
+        w, idx, aux = route(x_flat, router_w, m)
+        top = torch.sort(llm_moe.router_scores(x_flat.float() @ router_w, m),
+                         -1, descending=True).values
+        log["route"].append((idx.cpu(), (top[:, m.top_k - 1]
+                                         - top[:, m.top_k]).cpu()))
+        return w, idx, aux
+
+    def logged_dispatch(w, idx, T, E, k, C):
+        slot_tok, slot_w, pair_slot = dispatch(w, idx, T, E, k, C)
+        log["drops"].append((T, int((pair_slot == E * C).sum())))
+        return slot_tok, slot_w, pair_slot
+
+    llm_moe.route, llm_moe._dispatch_tables = logged_route, logged_dispatch
+    try:
+        yield log
+    finally:
+        llm_moe.route, llm_moe._dispatch_tables = route, dispatch
+
+
+@contextlib.contextmanager
+def forced_routing(idxs):
+    """``models.moe.route`` choosing the given experts, one (T, k) ``idx``
+    a call in call order, with weights from its own scores at them,
+    normalized as ``route`` normalizes its top k; its auxiliary losses
+    unchanged.  A prefill under it routes as the served path did, so
+    decode against it compares the arithmetic alone: a near-tie that
+    bf16 rounding flips is a discrete jump, not an error."""
+    route, calls = llm_moe.route, iter(idxs)
+
+    def forced(x_flat, router_w, m):
+        _, idx, aux = route(x_flat, router_w, m)
+        idx = next(calls).to(idx.device)
+        w = llm_moe.router_scores(x_flat.float() @ router_w, m).gather(-1,
+                                                                       idx)
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx, aux
+
+    llm_moe.route = forced
+    try:
+        yield
+    finally:
+        llm_moe.route = route
+
+
+def routing_report(served, fresh):
+    """The fresh prefill's own routing (its router's choice, before
+    ``forced_routing`` overrides it) against the served path's, one
+    (idx, margins) a layer: whether the new token's experts agree at
+    every layer, how many (layer, token) choices differ in all, and per
+    layer (the new token's experts equal, its k-th to (k+1)-th margin)."""
+    per_layer = [(torch.equal(s[-1], f[-1]), float(m[-1]))
+                 for (s, _), (f, m) in zip(served, fresh)]
+    differ = sum(int((s != f).any(-1).sum())
+                 for (s, _), (f, _) in zip(served, fresh))
+    return all(eq for eq, _ in per_layer), differ, per_layer
 
 
 def decode_gaps(cfg, params, prompt, steps, fault=None):
     """Greedy decode of ``steps`` tokens from ``prompt``, with ``fault``
     planted in the decode calls; at each step the decode logits against a
     fresh prefill of the prompt plus the tokens so far, at its last
-    position.  Rows of (step, largest difference, the prefill's top-2
-    margin, greedy tokens equal, largest |logit|)."""
+    position, that routes every token through the experts the served
+    path chose (``forced_routing``).  Rows of (step, largest difference,
+    the prefill's top-2 margin, greedy tokens equal, largest |logit|,
+    routing): routing is None for a model without MoE layers, else
+    ``routing_report``'s."""
     prefill = make_prefill_step(cfg, cache_len=LLM_CACHE_LEN)
     decode = make_decode_step(cfg)
     toks = torch.as_tensor(prompt, dtype=torch.long, device=params[
         "final_norm"]["scale"].device)[None]
     rows = []
-    with torch.no_grad():
+    with torch.no_grad(), moe_log() as log:
         logits, cache = prefill(params, {"tokens": toks})
+        served = list(log["route"])
         for step in range(steps):
             nxt = torch.argmax(logits, -1)[:, None]
             toks = torch.cat([toks, nxt], 1)
+            log["route"].clear()
             with planted(fault):
                 logits, cache = decode(params, {
                     "tokens": nxt, "cache": cache,
                     "decode_pos": toks.shape[1] - 1})
-            fresh, _ = make_prefill_step(cfg)(params, {"tokens": toks})
+            served = [(torch.cat([a, b]), torch.cat([ma, mb])) for
+                      (a, ma), (b, mb) in zip(served, log["route"])]
+            log["route"].clear()
+            with forced_routing([idx for idx, _ in served]):
+                fresh, _ = make_prefill_step(cfg)(params, {"tokens": toks})
+            routing = (routing_report(served, log["route"])
+                       if served else None)
             rows.append((
                 step, float((logits.float() - fresh.float()).abs().max()),
                 top2_margin(fresh),
                 bool(torch.equal(torch.argmax(logits, -1),
                                  torch.argmax(fresh, -1))),
-                float(fresh[..., :cfg.vocab_size].float().abs().max())))
+                float(fresh[..., :cfg.vocab_size].float().abs().max()),
+                routing))
     return rows
 
 
-def decode_against_prefill(cfg, params, prompt, steps, tol, what):
+def layer_gaps(cfg, params, prompt, fault=None):
+    """Where along the depth a decode-against-prefill gap enters: one
+    decode step after a prefill of ``prompt`` (``fault`` planted in it)
+    against a fresh prefill of the prompt plus the new token, routed as
+    the served path was (``forced_routing``).  Per layer, in order:
+    (mixer, ffn, the largest |decode - prefill| of the layer's output
+    hidden state at the new token, the largest |h| there)."""
+    prefill = make_prefill_step(cfg, cache_len=LLM_CACHE_LEN)
+    toks = torch.as_tensor(prompt, dtype=torch.long, device=params[
+        "final_norm"]["scale"].device)[None]
+    sound, seen = llm_transformer.apply_layer, []
+
+    def recording(lp, cfg_, spec, *a, **kw):
+        out = sound(lp, cfg_, spec, *a, **kw)
+        seen.append((spec.mixer, spec.ffn, out[0][:, -1].float()))
+        return out
+
+    with torch.no_grad(), moe_log() as log:
+        logits, cache = prefill(params, {"tokens": toks})
+        nxt = torch.argmax(logits, -1)[:, None]
+        served = list(log["route"])
+        log["route"].clear()
+        llm_transformer.apply_layer = recording
+        try:
+            with planted(fault):
+                make_decode_step(cfg)(params, {
+                    "tokens": nxt, "cache": cache,
+                    "decode_pos": toks.shape[1]})
+            dec = list(seen)
+            seen.clear()
+            routes = [torch.cat([a, b]) for (a, _), (b, _) in
+                      zip(served, log["route"])]
+            with forced_routing(routes):
+                make_prefill_step(cfg)(params, {
+                    "tokens": torch.cat([toks, nxt], 1)})
+        finally:
+            llm_transformer.apply_layer = sound
+    return [(mixer, ffn, float((d - p).abs().max()), float(p.abs().max()))
+            for (mixer, ffn, d), (_, _, p) in zip(dec, seen)]
+
+
+def decode_against_prefill(cfg, params, prompt, steps, tol, what,
+                           faults=tuple(DECODE_FAULTS), tag="llm"):
     """``decode_gaps`` of the sound decode: every step within ``tol``,
     the greedy tokens equal wherever the prefill's top-2 margin exceeds
-    ``tol``.  Then each of ``DECODE_FAULTS`` planted: its largest
+    ``tol``.  With MoE layers the prefill's own router must choose the
+    new token's experts as the decode did, at every layer, in more than
+    half of the steps.  Then each of ``faults`` planted: its largest
     difference must exceed ``tol``.  Returns the sound largest difference
     and each fault's."""
     rows = decode_gaps(cfg, params, prompt, steps)
-    for step, err, margin, same, big in rows:
-        print(f"[llm] {what} step {step}: |decode - prefill| max "
+    for step, err, margin, same, big, routing in rows:
+        route_msg = ""
+        if routing is not None:
+            route_msg = (f"; own routing: new token's experts "
+                         f"{'agree' if routing[0] else 'DIFFER'} (equal, "
+                         "margin a layer: "
+                         + ", ".join(f"{'=' if eq else '!'}{m:.3g}"
+                                     for eq, m in routing[2])
+                         + f"), {routing[1]} (layer, token) choices differ")
+        print(f"[{tag}] {what} step {step}: |decode - prefill| max "
               f"{err:.6g}, prefill top-2 margin {margin:.6g}, |logits| "
-              f"max {big:.4g}, greedy {'equal' if same else 'DIFFERS'}")
-    faults = {}
-    for fault in DECODE_FAULTS:
+              f"max {big:.4g}, greedy {'equal' if same else 'DIFFERS'}"
+              f"{route_msg}")
+    agree = [r for r in rows if r[5] is None or r[5][0]]
+    if rows[0][5] is not None:
+        print(f"[{tag}] {what}: the prefill's own router chose the new "
+              f"token's experts as the decode did at {len(agree)} of "
+              f"{len(rows)} steps")
+    fault_errs = {}
+    for fault in faults:
         errs = [r[1] for r in decode_gaps(cfg, params, prompt, steps, fault)]
-        faults[fault] = max(errs)
-        print(f"[llm] {what} planted fault '{fault}': |decode - prefill| "
+        fault_errs[fault] = max(errs)
+        print(f"[{tag}] {what} planted fault '{fault}': |decode - prefill| "
               f"max {max(errs):.6g} (steps: "
               f"{', '.join(f'{e:.4g}' for e in errs)})")
-    for step, err, margin, same, _ in rows:    # every reading printed first
+    check(2 * len(agree) > len(rows), f"{what}: the new token's routing "
+          f"agrees at only {len(agree)} of {len(rows)} steps")
+    for step, err, margin, same, _, _ in rows:  # every reading printed first
         check(err <= tol, f"{what} step {step}: decode vs prefill "
               f"{err} > {tol}")
         check(same or margin <= tol, f"{what} step {step}: greedy "
               f"token differs at a top-2 margin {margin} > {tol}")
-    for fault, worst in faults.items():
+    for fault, worst in fault_errs.items():
         check(worst > tol, f"{what}: planted fault '{fault}' reads "
               f"{worst} <= {tol}: the tolerance does not catch it")
-    return max(r[1] for r in rows), faults
+    return max(r[1] for r in rows), fault_errs
 
 
-def profile_llm(cfg, params, toks, steps=5):
+def profile_llm(cfg, params, toks, steps=5, tag="llm"):
     """One prefill and ``steps`` decode steps under ``torch.profiler``:
     host wall and device busy a step, device events a step, and the
     kernels that take the most device time."""
@@ -2946,12 +3236,12 @@ def profile_llm(cfg, params, toks, steps=5):
                 wall_ms = (time.perf_counter() - t0) * 1e3 / n
             rows = _device_rows(prof)
             busy_ms = sum(r[0] for r in rows) / 1e3 / n
-            print(f"[profile llm {label}] wall {wall_ms:.3f} ms a step "
+            print(f"[profile {tag} {label}] wall {wall_ms:.3f} ms a step "
                   f"(profiled), device busy {busy_ms:.3f} ms = "
                   f"{busy_ms / wall_ms:.3f} of wall, "
                   f"{sum(r[1] for r in rows) / n:.1f} device events a step")
             for dev_us, count, key in rows[:8]:
-                print(f"[profile llm {label}] {dev_us / n / 1e3:9.4f} ms a "
+                print(f"[profile {tag} {label}] {dev_us / n / 1e3:9.4f} ms a "
                       f"step {count // n:5d}x  {key[:90]}")
 
 
@@ -2974,54 +3264,19 @@ def phase_llm(profile=False):
           f"{cfg.vocab_size} (padded {params['embed']['table'].shape[0]}),"
           f" {cfg.param_dtype}: {n_params} parameters, {n_bytes} bytes, "
           f"drawn on the card in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(SEED)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size - 1, LLM_PROMPT)
-                    .astype(np.int32), LLM_NEW, i / LLM_RATE)
-            for i in range(LLM_REQUESTS)]
-    eng = ServingEngine(cfg, params=params, n_replicas=4, scheduler="fcfs",
-                        cache_len=LLM_CACHE_LEN, device=DEV)
-    t0 = time.perf_counter()
-    out = eng.serve(reqs)
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    check(len(out["responses"]) == LLM_REQUESTS and not out["dropped"],
-          f"llm serve: {len(out['responses'])} responses, dropped "
-          f"{out['dropped']}")
-    for r in out["responses"]:
-        check(r.tokens.shape == (LLM_NEW,) and
-              ((0 <= r.tokens) & (r.tokens < cfg.vocab_size)).all(),
-              f"llm serve: rid {r.rid} tokens {r.tokens}")
-    prefill = make_prefill_step(cfg, cache_len=LLM_CACHE_LEN)
-    decode = make_decode_step(cfg)
-    toks = torch.as_tensor(reqs[0].tokens, dtype=torch.long,
-                           device=DEV)[None]
-    with torch.no_grad():
-        prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": toks}),
-                             iters=10, warmup=2)
-        _, cache = prefill(params, {"tokens": toks})
-        nxt = toks[:, -1:]
-        decode_ms = cuda_ms(lambda: decode(params, {
-            "tokens": nxt, "cache": cache, "decode_pos": LLM_PROMPT}),
-            iters=20, warmup=2)
-    print(f"[llm] ServingEngine 4 replicas fcfs cache_len {LLM_CACHE_LEN}:"
-          f" {LLM_REQUESTS} requests of {LLM_PROMPT} tokens, {LLM_NEW} new "
-          f"each, served in {wall:.3f} s host wall; "
-          f"{out['throughput_rps']:.4f} req/s on the virtual clock, p50 "
-          f"{out['p50_latency'] * 1e3:.2f} ms, per-replica "
-          f"{out['per_replica']}; prefill {prefill_ms:.3f} ms, decode "
-          f"{decode_ms:.3f} ms a token (CUDA events); parameter bytes "
-          f"{n_bytes}, peak memory {peak} bytes")
-    print(f"[llm] first response tokens: "
-          f"{out['responses'][0].tokens.tolist()}")
+    reqs, out, _, prefill_ms, decode_ms = serve_llm("llm", cfg, params)
+    print(f"[llm] parameter bytes {n_bytes}, peak memory "
+          f"{torch.cuda.max_memory_allocated()} bytes")
     if profile:
-        profile_llm(cfg, params, toks)
+        profile_llm(cfg, params, torch.as_tensor(
+            reqs[0].tokens, dtype=torch.long, device=DEV)[None])
     worst, faults = decode_against_prefill(
         cfg, params, reqs[0].tokens, LLM_NEW, LLM_BF16_TOL, "qwen3-4b bf16")
     print(f"[llm] bf16 decode vs prefill: largest difference {worst:.6g} "
           f"(tolerance {LLM_BF16_TOL}); planted faults, least "
           f"{min(faults.values()):.6g}")
-    del params, eng, cache
-    torch.cuda.empty_cache()
+    del params
+    free_cuda()
     phase_llm_f32(cfg)
     return {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
@@ -3036,21 +3291,11 @@ def phase_llm_f32(full):
                        param_dtype="float32")
     gpu = init_model(cfg, torch.Generator(device=DEV).manual_seed(SEED),
                      device=DEV)
-    cpu = params_to(gpu, "cpu")
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, cfg.vocab_size - 1, LLM_PROMPT).astype(
         np.int32) for _ in range(LLM_F32_REQUESTS)]
+    cpu = card_against_cpu("llm", "2-layer full width", cfg, gpu, prompts)
     with ieee_float32(), torch.no_grad():
-        toks = torch.from_numpy(np.stack(prompts)).long()
-        lg, _, _ = model_apply(gpu, cfg, {"tokens": toks.to(DEV)})
-        lc, _, _ = model_apply(cpu, cfg, {"tokens": toks})
-        V = cfg.vocab_size
-        err = float((lg[..., :V].cpu() - lc[..., :V]).abs().max())
-        print(f"[llm] 2-layer float32 full width, {len(prompts)} x "
-              f"{LLM_PROMPT} tokens: |cuda - cpu| logits max {err:.6g} "
-              f"(tolerance {LLM_F32_TOL}; logits up to "
-              f"{float(lc[..., :V].abs().max()):.4g})")
-        check(err <= LLM_F32_TOL, f"2-layer f32 logits cuda vs cpu {err}")
         worst, faults = decode_against_prefill(
             cfg, gpu, prompts[0], LLM_NEW, LLM_F32_TOL, "2-layer float32")
         print(f"[llm] 2-layer float32 decode vs prefill on the card: "
@@ -3084,6 +3329,293 @@ def phase_llm_f32(full):
           f"({[r.tokens.tolist() for r in served[DEV]['responses']]})")
     check(served[DEV]["per_replica"] == served["cpu"]["per_replica"],
           "2-layer float32: per-replica counts differ")
+
+
+# ------------------------------------------------------- llm families
+def cut_config(arch):
+    """The published config of ``arch`` with each stage's repeats from
+    ``FAMILY_CUTS``."""
+    cfg = get_config(arch)
+    reps, _ = FAMILY_CUTS[arch]
+    return cfg.replace(stages=tuple(Stage(s.pattern, r)
+                                    for s, r in zip(cfg.stages, reps)))
+
+
+def lift_capacity(cfg):
+    """``cfg`` with ``capacity_factor = E / top_k`` (C >= T: no drops) for
+    decode against prefill; unchanged without MoE layers."""
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    return cfg.replace(moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+def free_cuda():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_llm(tag, cfg, params):
+    """``[llm]``'s workload through ``ServingEngine`` on the card: 8
+    requests of 16-token prompts at 20 a second, 8 greedy tokens each, 4
+    fcfs replicas, ``cache_len`` 256.  Returns the requests, the serve's
+    report, its MoE log (routing and drops of the served prefills and
+    decodes, at the config's own capacity factor; None without MoE
+    layers) and the prefill and decode ms by CUDA events.  The timed
+    serve runs the program as it is; the log comes from a second,
+    untimed serve of the same requests under ``moe_log`` (whose router
+    product, sort and host copies in every MoE layer would otherwise
+    enter the measured walls), which must give the same tokens."""
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size - 1, LLM_PROMPT)
+                    .astype(np.int32), LLM_NEW, i / LLM_RATE)
+            for i in range(LLM_REQUESTS)]
+    eng = ServingEngine(cfg, params=params, n_replicas=4, scheduler="fcfs",
+                        cache_len=LLM_CACHE_LEN, device=DEV)
+    eng.warmup(LLM_PROMPT)
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)
+    wall = time.perf_counter() - t0
+    log = None
+    if cfg.moe is not None:
+        with moe_log() as log:
+            logged = eng.serve(reqs)
+        check([r.tokens.tolist() for r in logged["responses"]]
+              == [r.tokens.tolist() for r in out["responses"]],
+              f"{tag}: the logged serve's tokens differ from the timed one's")
+        print(f"[{tag}] the same serve under moe_log (not reported): "
+              f"{logged['throughput_rps']:.4f} req/s on the virtual "
+              f"clock, the same tokens")
+    check(len(out["responses"]) == LLM_REQUESTS and not out["dropped"],
+          f"{tag} serve: {len(out['responses'])} responses, dropped "
+          f"{out['dropped']}")
+    for r in out["responses"]:
+        check(r.tokens.shape == (LLM_NEW,) and
+              ((0 <= r.tokens) & (r.tokens < cfg.vocab_size)).all(),
+              f"{tag} serve: rid {r.rid} tokens {r.tokens}")
+    prefill = make_prefill_step(cfg, cache_len=LLM_CACHE_LEN)
+    decode = make_decode_step(cfg)
+    toks = torch.as_tensor(reqs[0].tokens, dtype=torch.long,
+                           device=DEV)[None]
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": toks}),
+                             iters=10, warmup=2)
+        _, cache = prefill(params, {"tokens": toks})
+        decode_ms = cuda_ms(lambda: decode(params, {
+            "tokens": toks[:, -1:], "cache": cache,
+            "decode_pos": LLM_PROMPT}), iters=20, warmup=2)
+        again = [decode(params, {"tokens": toks[:, -1:], "cache": cache,
+                                 "decode_pos": LLM_PROMPT})[0]
+                 for _ in range(2)]
+    check(torch.equal(*again), f"{tag}: two decodes of one step differ")
+    print(f"[{tag}] ServingEngine 4 replicas fcfs cache_len "
+          f"{LLM_CACHE_LEN}: {LLM_REQUESTS} requests of {LLM_PROMPT} "
+          f"tokens, {LLM_NEW} new each, served in {wall:.3f} s host wall; "
+          f"{out['throughput_rps']:.4f} req/s on the virtual clock, p50 "
+          f"{out['p50_latency'] * 1e3:.2f} ms, per-replica "
+          f"{out['per_replica']}; prefill {prefill_ms:.3f} ms, decode "
+          f"{decode_ms:.3f} ms a token (CUDA events); two decodes of one "
+          f"step bit-equal")
+    print(f"[{tag}] first response tokens: "
+          f"{out['responses'][0].tokens.tolist()}")
+    return reqs, out, log, prefill_ms, decode_ms
+
+
+def phase_family(arch, profile=False):
+    """One family at its published widths (``FAMILY_CUTS``), bf16, random
+    weights drawn on the card from seed 0 (expert stacks one expert at a
+    time): parameters, bytes and peak memory; ``serve_llm``; the drops
+    the served prefills made at the published capacity factor; decode
+    against a fresh prefill at ``FAMILY_BF16_TOL`` with capacity lifted
+    to E / k, the family's planted faults above it; for rwkv6-3b the
+    ``[rwkv-model]`` check on its layer 0.  Returns the launches of the
+    check (the model itself launches none of the eight kernels)."""
+    tag = "llm-" + arch.split("-")[0].removesuffix("6")
+    cfg = cut_config(arch)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device=DEV).manual_seed(SEED),
+                        device=DEV)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    full = get_config(arch)
+    print(f"[{tag}] {arch} at its published widths (d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}), {cfg.n_layers} of {full.n_layers} layers; "
+          f"reduced: {FAMILY_CUTS[arch][1]}; {n_params} parameters, "
+          f"{n_bytes} bytes, drawn on the card in {draw_s:.2f} s; weight-"
+          f"read bound a decode step {n_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
+          f" ms")
+    reqs, out, log, prefill_ms, decode_ms = serve_llm(tag, cfg, params)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] parameter bytes {n_bytes}, peak memory {peak} bytes")
+    if cfg.moe is not None:
+        pre = [d for T, d in log["drops"] if T > 1]
+        dec = [d for T, d in log["drops"] if T == 1]
+        print(f"[{tag}] capacity factor {cfg.moe.capacity_factor}: the "
+              f"served prefills dropped {sum(pre)} (token, expert) pairs "
+              f"over {len(pre)} dispatches ({LLM_PROMPT} tokens x top-"
+              f"{cfg.moe.top_k}), the decodes {sum(dec)} over {len(dec)}")
+        check(sum(dec) == 0, f"{tag}: a one-token decode dropped a pair")
+    if profile:
+        profile_llm(cfg, params, torch.as_tensor(
+            reqs[0].tokens, dtype=torch.long, device=DEV)[None], tag=tag)
+    tol = FAMILY_BF16_TOL[arch]
+    worst, faults = decode_against_prefill(
+        lift_capacity(cfg), params, reqs[0].tokens, LLM_NEW, tol,
+        f"{arch} bf16", faults=FAMILY_FAULTS[arch], tag=tag)
+    print(f"[{tag}] bf16 decode vs prefill: largest difference {worst:.6g} "
+          f"(tolerance {tol}); planted faults, least "
+          f"{min(faults.values()):.6g}")
+    if cfg.mamba is not None:
+        for variant in (None, *VARIANTS):
+            if variant is not None:
+                rows = decode_gaps(lift_capacity(cfg), params,
+                                   reqs[0].tokens, LLM_NEW, fault=variant)
+                print(f"[{tag}] {arch} bf16 with the {variant}: |decode - "
+                      f"prefill| max {max(r[1] for r in rows):.6g} (steps: "
+                      + ", ".join(f"{r[1]:.4g}" for r in rows)
+                      + f"; sound {worst:.6g})")
+            gaps = layer_gaps(lift_capacity(cfg), params, reqs[0].tokens,
+                              variant)
+            print(f"[{tag}] {arch} bf16 step 0 a layer"
+                  f"{', ' + variant if variant else ''}: |decode - "
+                  "prefill| of its output / |h| max: "
+                  + "; ".join(f"{i} {mx}+{ff} {e:.4g} / {h:.4g}"
+                              for i, (mx, ff, e, h) in enumerate(gaps)))
+    launches = (phase_rwkv_model(cfg, params, reqs[0].tokens)
+                if cfg.rwkv else None)
+    del params
+    free_cuda()
+    if arch in FAMILY_F32:
+        phase_family_f32(tag, arch)
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "peak": peak}, launches
+
+
+def phase_rwkv_model(cfg, params, prompt):
+    """``[rwkv-model]``: layer 0 of the served rwkv6-3b on a served
+    prompt.  Its float32 r, k, v, w (from the bf16 layer) and u go through
+    ``ops.rwkv_scan`` (table row 8's kernel), counted from zero, held
+    against the model's own recurrence (``models.rwkv._recurrence``) at
+    ``F32_TOL`` (five times that for the state).  A check, not a caller:
+    the model computes its own loop."""
+    r_cfg = cfg.rwkv
+    H, hs = cfg.d_model // r_cfg.head_size, r_cfg.head_size
+    lp = params["stages"][0]["layers"][0]
+    toks = torch.as_tensor(prompt, dtype=torch.long, device=DEV)[None]
+    B, T = toks.shape
+    with torch.no_grad():
+        h = params["embed"]["table"][toks].to(torch.bfloat16)
+        x = llm_layers.apply_rms_norm(lp["mixer_norm"], h, cfg.norm_eps)
+        r, k, v, _, w = llm_rwkv._projections(lp["mixer"], x,
+                                              llm_rwkv._shift(x),
+                                              (B, T, H, hs))
+        u = lp["mixer"]["u"]
+        s0 = torch.zeros((B, H, hs, hs), dtype=torch.float32, device=DEV)
+        want, S = llm_rwkv._recurrence(r, k, v, w, u, s0)
+        want = want.transpose(1, 2)                    # (B, H, T, hs)
+        args = [a.transpose(1, 2).contiguous() for a in (r, k, v, w)]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got, s_got = ops.rwkv_scan(*args, u, s0)
+        torch.cuda.synchronize()
+        launches = ops.launches()
+    (e_out, ok_out), (e_s, ok_s) = (_close(got, want, F32_TOL),
+                                    _close(s_got, S, 5 * F32_TOL))
+    print(f"[rwkv-model] rwkv6-3b layer 0 on the served prompt (B={B}, "
+          f"H={H}, T={T}, hs={hs}; r, k, v, w float32 from the bf16 "
+          f"layer): ops.rwkv_scan against the model's own recurrence: max "
+          f"|out| diff {e_out:.3e} within {F32_TOL}: {ok_out}; max |state| "
+          f"diff {e_s:.3e} within {5 * F32_TOL}: {ok_s}; launches "
+          f"{launches}")
+    check(launches["rwkv_scan"] == 1 and ok_out and ok_s,
+          f"rwkv-model: {launches}, out {e_out}, state {e_s}")
+    return launches
+
+
+def card_against_cpu(tag, what, cfg, gpu, prompts):
+    """Float32 logits (and the MTP head's, where the model has one) of
+    ``cfg`` from the same weights on the card and on the CPU, within
+    ``LLM_F32_TOL``; with MoE layers, every routing decision equal (the
+    least router margin printed).  Returns the CPU parameters."""
+    cpu = params_to(gpu, "cpu")
+    toks = torch.from_numpy(np.stack(prompts)).long()
+    with ieee_float32(), torch.no_grad():
+        with moe_log() as lg:
+            out_g = model_apply(gpu, cfg, {"tokens": toks.to(DEV)})
+        with moe_log() as lc:
+            out_c = model_apply(cpu, cfg, {"tokens": toks})
+    V = cfg.vocab_size
+    errs = {"logits": float((out_g[0][..., :V].cpu()
+                             - out_c[0][..., :V]).abs().max())}
+    if "mtp_logits" in out_c[2]:
+        errs["mtp_logits"] = float((out_g[2]["mtp_logits"][..., :V].cpu()
+                                    - out_c[2]["mtp_logits"][..., :V])
+                                   .abs().max())
+    route = ""
+    if lc["route"]:
+        same = all(torch.equal(a[0], b[0]) for a, b in
+                   zip(lg["route"], lc["route"]))
+        least = min(float(m.min()) for _, m in lc["route"])
+        route = (f"; routing cuda == cpu: {same} (least top-k margin "
+                 f"{least:.3g})")
+        check(same, f"{what}: routing differs between cuda and cpu")
+    print(f"[{tag}] {what} float32, {len(prompts)} x {LLM_PROMPT} tokens: "
+          f"|cuda - cpu| max "
+          + ", ".join(f"{k} {e:.6g}" for k, e in errs.items())
+          + f" (tolerance {LLM_F32_TOL}; logits up to "
+          f"{float(out_c[0][..., :V].abs().max()):.4g}){route}")
+    for k, e in errs.items():
+        check(e <= LLM_F32_TOL, f"{what}: {k} cuda vs cpu {e}")
+    return cpu
+
+
+def phase_family_f32(tag, arch):
+    """The full-width float32 cut of ``FAMILY_F32``: card against CPU
+    from the same weights, then decode against prefill on the card at
+    ``LLM_F32_TOL`` with the family's faults above it."""
+    stages, what = FAMILY_F32[arch]
+    full = get_config(arch)
+    cfg = full.replace(stages=stages(full), dtype="float32",
+                       param_dtype="float32")
+    gpu = init_model(cfg, torch.Generator(device=DEV).manual_seed(SEED),
+                     device=DEV)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, LLM_PROMPT).astype(
+        np.int32) for _ in range(LLM_F32_REQUESTS)]
+    cpu = card_against_cpu(tag, f"{arch} full width, {what},", cfg, gpu,
+                           prompts)
+    del cpu
+    with ieee_float32():
+        worst, faults = decode_against_prefill(
+            cfg, gpu, prompts[0], LLM_NEW, LLM_F32_TOL,
+            f"{arch} float32 {what}", faults=FAMILY_FAULTS[arch], tag=tag)
+    print(f"[{tag}] float32 decode vs prefill on the card: largest "
+          f"difference {worst:.6g} (tolerance {LLM_F32_TOL}); planted "
+          f"faults, least {min(faults.values()):.6g}")
+    del gpu
+    free_cuda()
+
+
+def phase_families_smoke_f32():
+    """``[llm-smoke]``: each family's smoke preset in float32, card
+    against CPU from the same weights (``card_against_cpu``).  The full
+    width of an MoE layer in float32 is left out: a copy on the host
+    would take 11-45 GB."""
+    rng = np.random.default_rng(SEED + 2)
+    for arch in FAMILY_CUTS:
+        cfg = get_config(arch, preset="smoke")
+        gpu = init_model(cfg, torch.Generator(device=DEV).manual_seed(SEED),
+                         device=DEV)
+        prompts = [rng.integers(0, cfg.vocab_size - 1, LLM_PROMPT).astype(
+            np.int32) for _ in range(LLM_F32_REQUESTS)]
+        card_against_cpu("llm-smoke", f"{arch} smoke preset", cfg, gpu,
+                         prompts)
 
 
 def tf32_settings():
@@ -3153,11 +3685,6 @@ def main() -> int:
         cfg, anchors, profile="--profile" in sys.argv[1:])
     by_path["sharded"] = phase_sharded(trained, cfg)
     by_path["daemon"] = phase_daemon(trained, cfg)
-    for k, e in entries.items():
-        e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
-        e["launches"] = sum(e["launches_by_path"].values())
-        check(e["launches"] > 0, f"{k} was never launched on a main path")
-    check(len(entries) == 8, f"kernels line has {len(entries)} entries")
     if "--profile" in sys.argv[1:]:
         phase_profile("nvr", nvr_engine(params, cfg), frames)
         phase_profile("nvr-fused", nvr_engine(params, cfg, fused=True),
@@ -3168,6 +3695,16 @@ def main() -> int:
                       nvr_frames(SHARD_CAMS, SHARD_FRAMES, RATE_FPS)[0])
     phase_nan()
     phase_llm(profile="--profile" in sys.argv[1:])
+    for arch in FAMILY_CUTS:
+        _, launches = phase_family(arch, profile="--profile" in sys.argv[1:])
+        if launches is not None:
+            by_path["rwkv_model"] = launches
+    phase_families_smoke_f32()
+    for k, e in entries.items():
+        e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
+        check(e["launches"] > 0, f"{k} was never launched on a main path")
+    check(len(entries) == 8, f"kernels line has {len(entries)} entries")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(gpu_line())

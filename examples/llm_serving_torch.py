@@ -1,6 +1,6 @@
 """The paper's multi-model parallelism as an LLM serving feature, on the
 PyTorch port (the counterpart of ``examples/llm_serving.py``): batched
-requests over n model replicas of a ported architecture, FCFS vs RR,
+requests over n model replicas of an assigned architecture, FCFS vs RR,
 homogeneous vs heterogeneous replicas, with real prefill/decode compute.
 
   PYTHONPATH=src python examples/llm_serving_torch.py [--arch qwen3-4b]
@@ -16,7 +16,7 @@ import argparse
 
 import numpy as np
 
-from repro_torch.configs import get_config, ported_archs
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.serving import Request, ServingEngine
 
 
@@ -29,8 +29,7 @@ def burst(cfg, n, rate, prompt_len=16, new_tokens=6, seed=0):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b",
-                    choices=ported_archs())
+    ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_IDS)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)

@@ -1,17 +1,16 @@
 """Config registry + the four assigned input shapes (the port of the
 reference package's ``configs/base.py``).
 
-Every ported architecture module exposes ``make_config(preset, variant)``:
+Every architecture module exposes ``make_config(preset, variant)``:
   preset  "full"  — the exact published configuration
           "smoke" — reduced same-family variant (2 layers, d_model 256)
                     that runs a real step on the CPU
   variant None    — full attention
           "swa"   — sliding-window decode variant (window 4096)
 
-Every architecture of the reference is listed in ``ARCH_IDS``;
-``get_config`` raises ``NotImplementedError`` for one whose config needs
-model code the port does not have yet (``models.transformer.check_ported``
-decides), and ``ported_archs`` lists the others.
+Every architecture of the reference is listed in ``ARCH_IDS``, and the
+port's model code runs each; ``get_config`` raises ``ValueError`` for a
+name that is not among them.
 """
 from __future__ import annotations
 
@@ -20,7 +19,6 @@ from dataclasses import dataclass
 from typing import Optional
 
 from ..models.config import ModelConfig
-from ..models.transformer import check_ported, unported
 
 SWA_WINDOW = 4096
 
@@ -46,25 +44,14 @@ ARCH_IDS = [
     "pixtral-12b", "minicpm-2b",
 ]
 
-def _make_config(arch: str, preset: str, variant: Optional[str]):
+
+def get_config(arch: str, preset: str = "full",
+               variant: Optional[str] = None) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; one of {ARCH_IDS}")
     mod = importlib.import_module(
         f"{__package__}.{arch.replace('-', '_').replace('.', '_')}")
     return mod.make_config(preset=preset, variant=variant)
-
-
-def get_config(arch: str, preset: str = "full",
-               variant: Optional[str] = None) -> ModelConfig:
-    cfg = _make_config(arch, preset, variant)
-    check_ported(cfg)
-    return cfg
-
-
-def ported_archs():
-    """The architectures of ``ARCH_IDS`` whose model code is ported."""
-    return [a for a in ARCH_IDS
-            if not unported(_make_config(a, "smoke", None))]
 
 
 def supported_shapes(cfg: ModelConfig, variant: Optional[str] = None):

@@ -1,6 +1,6 @@
 """Serving launcher (the port of the reference package's
-``launch/serve.py``): the parallel-replica LLM serving engine on a
-ported architecture, or the sharded NVR detection path.
+``launch/serve.py``): the parallel-replica LLM serving engine on an
+assigned architecture, or the sharded NVR detection path.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --n-replicas 4 --scheduler fcfs --requests 24
@@ -138,10 +138,7 @@ def serve_tokens(args):
 
     if args.arch not in ARCH_IDS:
         raise SystemExit(f"unknown --arch {args.arch}; one of {ARCH_IDS}")
-    try:
-        cfg = get_config(args.arch, preset=args.preset)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    cfg = get_config(args.arch, preset=args.preset)
     if cfg.encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
     speeds = None

@@ -1,6 +1,6 @@
-"""Attention mixers: GQA (full / sliding-window) with optional qk-norm
-(the port of the GQA half of the reference package's
-``models/attention.py``; multi-head latent attention is not ported yet).
+"""Attention mixers: GQA (full / sliding-window) with optional qk-norm,
+and DeepSeek-style MLA (multi-head latent attention with a compressed KV
+cache) (the port of the reference package's ``models/attention.py``).
 
 Three execution modes share one code path:
   train   — full sequence, no cache
@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import layers
-from .config import LayerSpec, ModelConfig
+from .config import LayerSpec, MLAConfig, ModelConfig
 from .rope import apply_rope
 
 NEG_INF = -1e30
@@ -209,18 +209,144 @@ def _fill_cache(cache, k, v, T):
             "v": torch.roll(v[:, T - L:], shift, dims=1)}
 
 
+# ------------------------------------------------------------------ MLA
+def init_mla(generator, cfg: ModelConfig):
+    m: MLAConfig = cfg.mla
+    H, dm = cfg.n_heads, cfg.d_model
+    dt = layers.torch_dtype(cfg.param_dtype)
+    dev = generator.device
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq_a": layers.dense_init(generator, dm, m.q_lora_rank, dt),
+        "q_norm": layers.init_rms_norm(m.q_lora_rank, dt, dev),
+        "wq_b": layers.dense_init(generator, m.q_lora_rank, H * qk_dim, dt),
+        "wkv_a": layers.dense_init(generator, dm,
+                                   m.kv_lora_rank + m.qk_rope_dim, dt),
+        "kv_norm": layers.init_rms_norm(m.kv_lora_rank, dt, dev),
+        "wk_b": layers.dense_init(generator, m.kv_lora_rank,
+                                  H * m.qk_nope_dim, dt),
+        "wv_b": layers.dense_init(generator, m.kv_lora_rank,
+                                  H * m.v_head_dim, dt),
+        "wo": layers.dense_init(generator, H * m.v_head_dim, dm, dt),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, spec: LayerSpec, batch, cache_len,
+                   dtype, device):
+    m = cfg.mla
+    win = spec.window or cfg.decode_window
+    L = min(cache_len, win) if win else cache_len
+    return {
+        "ckv": torch.zeros((batch, L, m.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "kpe": torch.zeros((batch, L, m.qk_rope_dim), dtype=dtype,
+                           device=device),
+    }
+
+
+def _mla_expand(p, cfg, ckv):
+    """ckv:(B,S,r) -> k_nope:(B,S,H,nope), v:(B,S,H,v_dim)."""
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = ckv.shape
+    k_nope = (ckv @ p["wk_b"]).reshape(B, S, H, m.qk_nope_dim)
+    v = (ckv @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
+    return k_nope, v
+
+
+def apply_mla(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
+              mode="train", cache=None, decode_pos=None):
+    m, H = cfg.mla, cfg.n_heads
+    B, T, _ = x.shape
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+
+    q_lat = layers.rms_norm(x @ p["wq_a"], p["q_norm"]["scale"],
+                            cfg.norm_eps)
+    q = (q_lat @ p["wq_b"]).reshape(B, T, H, qk_dim)
+    q_nope, q_pe = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta, "full")
+    q = torch.cat([q_nope, q_pe], dim=-1)
+
+    kv = x @ p["wkv_a"]
+    ckv = layers.rms_norm(kv[..., :m.kv_lora_rank], p["kv_norm"]["scale"],
+                          cfg.norm_eps)
+    kpe = kv[..., m.kv_lora_rank:][:, :, None, :]       # single shared head
+    kpe = apply_rope(kpe, positions, cfg.rope_theta, "full")[:, :, 0]
+
+    scale = qk_dim ** -0.5
+    window = spec.window or (cfg.decode_window if mode != "train" else None)
+
+    new_cache = None
+    if mode in ("train", "prefill"):
+        k_nope, v = _mla_expand(p, cfg, ckv)
+        k = torch.cat([k_nope, kpe[:, :, None].expand(B, T, H,
+                                                      m.qk_rope_dim)],
+                      dim=-1)
+        out = sdpa_masked(q, k, v, positions, positions, cfg.causal,
+                          window, None, scale)
+        if mode == "prefill":
+            new_cache = _fill_mla_cache(cache, ckv, kpe, T)
+    else:
+        # weight-absorbed MLA decode: attention runs in the compressed
+        # kv_lora space (W_kb absorbed into the query, W_vb into the
+        # output), so the (L, H, nope + v) expansion of the cache never
+        # materializes.  Scores, probabilities and context in float32.
+        L = cache["ckv"].shape[1]
+        new_cache = _write_latent(cache, ckv, kpe, decode_pos % L)
+        cckv, ckpe = new_cache["ckv"], new_cache["kpe"]
+        wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_dim)
+        wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+        q_abs = torch.einsum("bthn,rhn->bthr", q_nope, wk_b)   # (B,1,H,r)
+        s = torch.einsum("bthr,bsr->bhts", q_abs.float(), cckv.float())
+        s = s + torch.einsum("bthp,bsp->bhts", q_pe.float(), ckpe.float())
+        s = s * scale
+        k_pos, valid = _ring_positions(L, decode_pos + 1, x.device)
+        k_pos = k_pos[None].expand(B, L)
+        valid = valid[None].expand(B, L)
+        mask = make_mask(positions, k_pos, cfg.causal, window, valid)
+        s = torch.where(mask, s, NEG_INF)
+        prob = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhts,bsr->bthr", prob, cckv.float())
+        out = torch.einsum("bthr,rhv->bthv", ctx,
+                           wv_b.float()).to(x.dtype)
+
+    y = out.reshape(B, T, H * m.v_head_dim) @ p["wo"]
+    return y, new_cache
+
+
+def _write_latent(cache, ckv, kpe, slot):
+    """A copy of the latent ring with the decode token's compressed KV
+    and rope key at ``slot``."""
+    cckv, ckpe = cache["ckv"].clone(), cache["kpe"].clone()
+    cckv[:, slot:slot + 1] = ckv
+    ckpe[:, slot:slot + 1] = kpe
+    return {"ckv": cckv, "kpe": ckpe}
+
+
+def _fill_mla_cache(cache, ckv, kpe, T):
+    L = cache["ckv"].shape[1]
+    if T <= L:
+        cckv, ckpe = cache["ckv"].clone(), cache["kpe"].clone()
+        cckv[:, :T] = ckv
+        ckpe[:, :T] = kpe
+        return {"ckv": cckv, "kpe": ckpe}
+    shift = (T - L) % L
+    return {"ckv": torch.roll(ckv[:, T - L:], shift, dims=1),
+            "kpe": torch.roll(kpe[:, T - L:], shift, dims=1)}
+
+
 # ------------------------------------------------------------------ facade
-# multi-head latent attention is not ported yet: models.transformer's
-# check_ported refuses a cfg.mla config before any of these is reached
 def init_attention(generator, cfg: ModelConfig):
-    return init_gqa(generator, cfg)
+    return init_mla(generator, cfg) if cfg.mla else init_gqa(generator, cfg)
 
 
 def init_attention_cache(cfg, spec, batch, cache_len, dtype, device):
+    if cfg.mla:
+        return init_mla_cache(cfg, spec, batch, cache_len, dtype, device)
     return init_gqa_cache(cfg, spec, batch, cache_len, dtype, device)
 
 
 def apply_attention(p, cfg, spec, x, positions, mode="train", cache=None,
                     decode_pos=None):
-    return apply_gqa(p, cfg, spec, x, positions, mode=mode, cache=cache,
-                     decode_pos=decode_pos)
+    fn = apply_mla if cfg.mla else apply_gqa
+    return fn(p, cfg, spec, x, positions, mode=mode, cache=cache,
+              decode_pos=decode_pos)

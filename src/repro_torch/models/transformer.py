@@ -1,17 +1,17 @@
-"""Composable model: stages of layer periods over the ported mixer/ffn
-kinds (the port of the reference package's ``models/transformer.py``).
+"""Composable model: stages of layer periods over any mixer/ffn mix (the
+port of the reference package's ``models/transformer.py``).
 
-One code path serves the dense attention architectures in all three
-execution modes (train / prefill / decode).  The reference runs each
+One code path serves all ten architectures of ``configs.ARCH_IDS`` in
+all three execution modes (train / prefill / decode): the mixers
+``attn`` (GQA, or multi-head latent attention where ``cfg.mla``),
+``mamba`` and ``rwkv``, the ffns ``dense``, ``moe`` and ``rwkv_cmix``,
+and DeepSeek's multi-token-prediction head.  The reference runs each
 stage under ``jax.lax.scan`` over stacked period parameters; the port
 runs the layers one by one in Python, over a flat list of per-layer
 parameter dicts in execution order (``params["stages"][i]["layers"]``,
 and likewise ``cache[i]["caches"]``).  The reference's sharding
 constraints have no counterpart here (the XLA sharding modules are
-``ROADMAP.md`` section 1, item 3).  The mixers ``mamba`` and ``rwkv``,
-the ffns ``moe`` and ``rwkv_cmix``, multi-head latent attention and the
-multi-token-prediction head are not ported yet and raise
-``NotImplementedError`` (``ROADMAP.md`` section 1, item 2).
+``ROADMAP.md`` section 1, item 3).
 """
 from __future__ import annotations
 
@@ -21,65 +21,86 @@ import numpy as np
 import torch
 
 from ..device import ieee_float32, params_to, resolve_device
-from . import attention, layers
-from .config import ModelConfig
+from . import attention, layers, mamba, moe, rwkv
+from .config import LayerSpec, ModelConfig
 
 ZERO_AUX = {"aux_loss": 0.0, "load_balance": 0.0, "router_z": 0.0}
 
 
-def unported(cfg: ModelConfig):
-    """The parts of the reference's model code that ``cfg`` needs and the
-    port does not have yet (``ROADMAP.md`` section 1, item 2)."""
-    specs = cfg.layer_specs()
-    parts = [f"the {m!r} mixer"
-             for m in sorted({s.mixer for s in specs} - {"attn"})]
-    parts += [f"the {f!r} ffn"
-              for f in sorted({s.ffn for s in specs} - {"dense", "none"})]
-    if cfg.mla:
-        parts.append("multi-head latent attention")
-    if cfg.mtp:
-        parts.append("the multi-token-prediction head")
-    return parts
-
-
-def check_ported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` where ``cfg`` needs a part of the
-    reference's model code that the port does not have yet: the one gate
-    of ``get_config``, ``init_model``, ``init_cache``,
-    ``params_from_numpy`` and ``model_apply``."""
-    parts = unported(cfg)
-    if parts:
-        raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(parts)}, not ported yet "
-            "(ROADMAP.md, section 1, item 2)")
-
-
 # ------------------------------------------------------------------ layers
-def init_layer(generator, cfg: ModelConfig, spec):
+def init_layer(generator, cfg: ModelConfig, spec: LayerSpec):
     dt = layers.torch_dtype(cfg.param_dtype)
     dev = generator.device
-    p: Dict[str, Any] = {
-        "mixer_norm": layers.init_rms_norm(cfg.d_model, dt, dev),
-        "mixer": attention.init_attention(generator, cfg)}
-    if spec.ffn == "dense":
+    p: Dict[str, Any] = {"mixer_norm": layers.init_rms_norm(cfg.d_model, dt,
+                                                            dev)}
+    if spec.mixer == "attn":
+        p["mixer"] = attention.init_attention(generator, cfg)
+    elif spec.mixer == "mamba":
+        p["mixer"] = mamba.init_mamba(generator, cfg)
+    elif spec.mixer == "rwkv":
+        p["mixer"] = rwkv.init_rwkv(generator, cfg)
+    else:
+        raise ValueError(spec.mixer)
+    if spec.ffn != "none":
         p["ffn_norm"] = layers.init_rms_norm(cfg.d_model, dt, dev)
+    if spec.ffn == "dense":
         p["ffn"] = layers.init_mlp(generator, cfg.d_model, cfg.d_ff, dt)
+    elif spec.ffn == "moe":
+        p["ffn"] = moe.init_moe(generator, cfg)
+    elif spec.ffn == "rwkv_cmix":
+        p["ffn"] = rwkv.init_rwkv_cmix(generator, cfg)
     return p
 
 
-def apply_layer(p, cfg: ModelConfig, spec, h, positions, mode="train",
-                cache=None, decode_pos=None):
+def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch, cache_len,
+                     dtype, device):
+    c: Dict[str, Any] = {}
+    if spec.mixer == "attn":
+        c["mixer"] = attention.init_attention_cache(cfg, spec, batch,
+                                                    cache_len, dtype, device)
+    elif spec.mixer == "mamba":
+        c["mixer"] = mamba.init_mamba_cache(cfg, batch, dtype, device)
+    elif spec.mixer == "rwkv":
+        c["mixer"] = rwkv.init_rwkv_cache(cfg, batch, dtype, device)
+    c["ffn"] = (rwkv.init_cmix_cache(cfg, batch, dtype, device)
+                if spec.ffn == "rwkv_cmix" else {})
+    return c
+
+
+def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, h, positions,
+                mode="train", cache=None, decode_pos=None):
+    """One layer: (h, its new cache, its auxiliary losses)."""
     cache = cache or {}
     h_norm = layers.apply_rms_norm(p["mixer_norm"], h, cfg.norm_eps)
-    y, mc = attention.apply_attention(p["mixer"], cfg, spec, h_norm,
-                                      positions, mode=mode,
-                                      cache=cache.get("mixer"),
-                                      decode_pos=decode_pos)
+    if spec.mixer == "attn":
+        y, mc = attention.apply_attention(p["mixer"], cfg, spec, h_norm,
+                                          positions, mode=mode,
+                                          cache=cache.get("mixer"),
+                                          decode_pos=decode_pos)
+    elif spec.mixer == "mamba":
+        y, mc = mamba.apply_mamba(p["mixer"], cfg, h_norm, mode=mode,
+                                  cache=cache.get("mixer"))
+    else:
+        y, mc = rwkv.apply_rwkv(p["mixer"], cfg, h_norm, mode=mode,
+                                cache=cache.get("mixer"))
     h = h + y
-    if spec.ffn == "dense":
+
+    aux = dict(ZERO_AUX)
+    fc: Any = {}
+    if spec.ffn != "none":
         f_norm = layers.apply_rms_norm(p["ffn_norm"], h, cfg.norm_eps)
-        h = h + layers.apply_mlp(p["ffn"], f_norm)
-    return h, {"mixer": mc if mc is not None else {}, "ffn": {}}
+        if spec.ffn == "dense":
+            f = layers.apply_mlp(p["ffn"], f_norm)
+        elif spec.ffn == "moe":
+            f, moe_aux = moe.apply_moe(p["ffn"], cfg, f_norm)
+            aux.update(moe_aux)
+        else:
+            f, fc = rwkv.apply_rwkv_cmix(p["ffn"], cfg, f_norm, mode=mode,
+                                         cache=cache.get("ffn"))
+            fc = fc or {}
+        h = h + f
+    new_cache = {"mixer": mc if mc is not None else {}, "ffn": fc}
+    return h, new_cache, aux
 
 
 # ------------------------------------------------------------------ model
@@ -88,7 +109,6 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
     on ``device`` (None: ``cuda``, raising where no CUDA device exists).
     They do not reproduce the reference's ``jax.random`` draws; to run
     the reference's weights use ``params_from_numpy``."""
-    check_ported(cfg)
     device = resolve_device(device)
     dt = layers.torch_dtype(cfg.param_dtype)
     p: Dict[str, Any] = {}
@@ -106,6 +126,16 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
     if not cfg.tie_embeddings:
         p["unembed"] = layers.init_unembed(generator, cfg.d_model,
                                            cfg.vocab_size, dt)
+    if cfg.mtp:
+        dev = generator.device
+        p["mtp"] = {
+            "proj": layers.dense_init(generator, 2 * cfg.d_model,
+                                      cfg.d_model, dt),
+            "norm_h": layers.init_rms_norm(cfg.d_model, dt, dev),
+            "norm_e": layers.init_rms_norm(cfg.d_model, dt, dev),
+            "layer": init_layer(generator, cfg, LayerSpec("attn", "dense")),
+            "final_norm": layers.init_rms_norm(cfg.d_model, dt, dev),
+        }
     return params_to(p, device)
 
 
@@ -122,8 +152,10 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
     as the port's parameters on ``device`` (as in ``init_model``): each
     stage's stacked ``layers`` (one stack per pattern position, the
     leading axis the repeats) is unstacked into per-layer dicts in
-    execution order."""
-    check_ported(cfg)
+    execution order.  Every leaf keeps its dtype: the float32 leaves of
+    a bf16 model (router weights, ``A_log``, ``w0``, ...) stay float32,
+    and a stacked expert tensor (repeats, E, d, f) unstacks to (E, d,
+    f)."""
     device = resolve_device(device)
 
     def tensors(t):
@@ -147,13 +179,13 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
 
 
 def init_cache(cfg: ModelConfig, batch, cache_len, dtype=None, device=None):
-    """Zeroed ring caches, one per layer, on ``device`` (None: ``cuda``)."""
-    check_ported(cfg)
+    """Zeroed caches, one per layer, on ``device`` (None: ``cuda``): ring
+    caches for attention, conv window and state for Mamba, token shifts
+    and state for RWKV (the states float32)."""
     device = resolve_device(device)
     dtype = layers.torch_dtype(dtype or cfg.dtype)
-    return [{"caches": [{"mixer": attention.init_attention_cache(
-                             cfg, spec, batch, cache_len, dtype, device),
-                         "ffn": {}}
+    return [{"caches": [init_layer_cache(cfg, spec, batch, cache_len, dtype,
+                                         device)
                         for _ in range(s.repeats) for spec in s.pattern]}
             for s in cfg.stages]
 
@@ -194,8 +226,10 @@ def model_apply(p, cfg: ModelConfig, batch_in: Dict[str, Any],
     """Returns (logits, new_cache, aux).  ``decode_pos`` is the position
     of the one new token in decode mode.  Float32 products run in IEEE
     float32 whatever the process-wide TF32 settings say
-    (``device.ieee_float32``)."""
-    check_ported(cfg)
+    (``device.ieee_float32``).  ``aux`` holds the auxiliary losses of
+    the MoE layers, summed over layers (zero without one), and in train
+    mode, for a model with the multi-token-prediction head,
+    ``mtp_logits``."""
     h = _embed_inputs(p, cfg, batch_in)
     B, S, _ = h.shape
     if mode == "decode":
@@ -204,7 +238,7 @@ def model_apply(p, cfg: ModelConfig, batch_in: Dict[str, Any],
     else:
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
 
-    new_caches = []
+    new_caches, aux_tot = [], dict(ZERO_AUX)
     for i, stage in enumerate(cfg.stages):
         lps = p["stages"][i]["layers"]
         lcs = (cache[i]["caches"] if cache is not None
@@ -212,12 +246,28 @@ def model_apply(p, cfg: ModelConfig, batch_in: Dict[str, Any],
         specs = list(stage.pattern) * stage.repeats
         ncs = []
         for lp, lc, spec in zip(lps, lcs, specs):
-            h, nc = apply_layer(lp, cfg, spec, h, positions, mode=mode,
-                                cache=lc, decode_pos=decode_pos)
+            h, nc, aux = apply_layer(lp, cfg, spec, h, positions, mode=mode,
+                                     cache=lc, decode_pos=decode_pos)
             ncs.append(nc)
+            aux_tot = {k: aux_tot[k] + aux[k] for k in aux_tot}
         new_caches.append({"caches": ncs})
 
     logits = logits_fn(p, cfg, h)
-    # no moe ffn is ported, so every auxiliary loss is zero
-    return (logits, (new_caches if cache is not None else None),
-            dict(ZERO_AUX))
+    if cfg.mtp and mode == "train":
+        aux_tot["mtp_logits"] = _mtp_logits(p, cfg, h, batch_in, positions)
+    return logits, (new_caches if cache is not None else None), aux_tot
+
+
+def _mtp_logits(p, cfg, h, batch_in, positions):
+    """DeepSeek-V3 multi-token prediction: one extra block predicting t+2
+    from (h_t, emb(token_{t+1}))."""
+    mp = p["mtp"]
+    nxt = torch.roll(batch_in["tokens"], -1, dims=1)
+    emb = layers.apply_embedding(p["embed"], nxt).to(h.dtype)
+    hn = layers.apply_rms_norm(mp["norm_h"], h, cfg.norm_eps)
+    en = layers.apply_rms_norm(mp["norm_e"], emb, cfg.norm_eps)
+    x = torch.cat([hn, en], dim=-1) @ mp["proj"]
+    x, _, _ = apply_layer(mp["layer"], cfg, LayerSpec("attn", "dense"), x,
+                          positions, mode="train")
+    x = layers.apply_rms_norm(mp["final_norm"], x, cfg.norm_eps)
+    return _unembed(p, cfg, x)

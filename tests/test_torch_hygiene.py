@@ -52,10 +52,12 @@ def test_serving_imports_with_jax_blocked():
             "repro_torch.obs.audit, repro_torch.obs.export, "
             "repro_torch.launch.daemon, repro_torch.launch.serve, "
             "repro_torch.models, repro_torch.models.attention, "
+            "repro_torch.models.moe, repro_torch.models.mamba, "
+            "repro_torch.models.rwkv, "
             "repro_torch.configs, repro_torch.runtime, "
             "repro_torch.runtime.steps, runpy; "
             "[repro_torch.configs.get_config(a, preset='smoke') "
-            "for a in repro_torch.configs.ported_archs()]; "
+            "for a in repro_torch.configs.ARCH_IDS]; "
             "runpy.run_path(sys.argv[1]); "
             "assert 'jax' not in {m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None}; print('ok')")

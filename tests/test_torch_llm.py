@@ -37,7 +37,7 @@ from repro.runtime.steps import make_decode_step as jdecode_step
 from repro.runtime.steps import make_prefill_step as jprefill_step
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JServing
-from repro_torch.configs import ARCH_IDS, get_config, ported_archs
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import serve as tserve
 from repro_torch.models import (init_cache, init_model, model_apply,
                                 params_from_numpy)
@@ -52,8 +52,13 @@ from repro_torch.serving import ServingEngine as TServing
 from repro_torch.serving import engine as tengine
 
 ATOL = 1e-4
-PORTED = ["qwen3-4b", "minicpm-2b", "chatglm3-6b", "mistral-nemo-12b",
-          "pixtral-12b", "hubert-xlarge"]
+PORTED = list(ARCH_IDS)
+#: the architectures of the families ported last (RWKV-6, Mamba with MoE,
+#: multi-head latent attention with MoE and the MTP head, MoE alone)
+FAMILIES = ["rwkv6-3b", "jamba-v0.1-52b", "deepseek-v3-671b", "grok-1-314b"]
+#: a router's k-th against (k+1)-th score below which a ULP could flip
+#: its choice between the two packages (scores of O(1) in float32)
+ROUTER_MARGIN = 1e-5
 
 
 def _t(a, dtype=None):
@@ -91,13 +96,18 @@ def test_configs_equal_reference(arch, preset):
 
 
 def test_unported_architectures_raise():
-    assert sorted(ported_archs()) == sorted(PORTED)
-    for arch in sorted(set(ARCH_IDS) - set(PORTED)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_config(arch, preset="smoke")
-        cfg = jget(arch, preset="smoke")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    """No architecture is left unported: every arch of ``ARCH_IDS`` builds
+    in both presets (its config, and at the smoke preset its parameters
+    and caches), and an unknown one raises ``ValueError``."""
+    for arch in ARCH_IDS:
+        for preset in ("smoke", "full"):
+            assert get_config(arch, preset=preset).name.startswith(
+                arch.split("-")[0])
+        cfg = get_config(arch, preset="smoke")
+        p = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+        assert len(p["stages"]) == len(cfg.stages)
+        if not cfg.encoder_only:
+            assert len(init_cache(cfg, 1, 8, device="cpu")) == len(cfg.stages)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-2")
 
@@ -260,27 +270,61 @@ def _inputs(cfg, B=2, S=12, seed=0):
     return jb, tb
 
 
+@pytest.fixture
+def router_margins(monkeypatch):
+    """Every call of the port's ``moe.route`` records its least margin
+    between the k-th and (k+1)-th router score over its tokens."""
+    from repro_torch.models import moe as tmoe
+    seen, sound = [], tmoe.route
+
+    def route(x_flat, router_w, m):
+        top = torch.sort(tmoe.router_scores(x_flat.float() @ router_w, m),
+                         -1, descending=True).values
+        seen.append(float((top[:, m.top_k - 1] - top[:, m.top_k]).min()))
+        return sound(x_flat, router_w, m)
+
+    monkeypatch.setattr(tmoe, "route", route)
+    return seen
+
+
 @pytest.mark.parametrize("arch", PORTED)
-def test_model_apply_train_equals_reference(arch):
+def test_model_apply_train_equals_reference(arch, router_margins):
+    """Logits, the auxiliary losses (zero without an MoE layer) and the
+    MTP head's logits against the reference; where the model routes, each
+    router's least top-k margin exceeds ``ROUTER_MARGIN``, so both
+    packages route every token alike."""
     jcfg, tcfg, tree, p = ref_weights(arch)
     jb, tb = _inputs(jcfg)
-    jl, _, _ = japply(jax.tree.map(jnp.asarray, tree), jcfg, jb)
+    jl, _, jaux = japply(jax.tree.map(jnp.asarray, tree), jcfg, jb)
     tl, cache, aux = model_apply(p, tcfg, tb)
-    assert cache is None and aux == {"aux_loss": 0.0, "load_balance": 0.0,
-                                     "router_z": 0.0}
+    assert cache is None and set(aux) == set(jaux)
+    if tcfg.moe is None:
+        assert aux == {"aux_loss": 0.0, "load_balance": 0.0,
+                       "router_z": 0.0}
+    assert all(m > ROUTER_MARGIN for m in router_margins), router_margins
+    for k in ("aux_loss", "load_balance", "router_z"):
+        close(aux[k], np.array(jaux[k]), 1e-5)
     V = jcfg.vocab_size
     close(tl[..., :V], np.array(jl)[..., :V])
+    if tcfg.mtp:
+        close(aux["mtp_logits"][..., :V], np.array(jaux["mtp_logits"])[
+            ..., :V])
     # the pad slots are masked out of the softmax with finfo.min
     assert tl.shape[-1] == tlayers.pad_vocab(V)
     assert bool((tl[..., V:] == torch.finfo(torch.float32).min).all())
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "minicpm-2b", "chatglm3-6b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "minicpm-2b", "chatglm3-6b",
+                                  *FAMILIES])
 @pytest.mark.parametrize("decode_window", [None, 8])
-def test_prefill_and_decode_steps_equal_reference(arch, decode_window):
+def test_prefill_and_decode_steps_equal_reference(arch, decode_window,
+                                                  router_margins):
     """The prefill step over a 12-token prompt into a 16-slot cache, then
-    6 decode steps (with ``decode_window`` 8 the ring wraps), feeding the
-    reference's greedy tokens to both."""
+    6 decode steps (with ``decode_window`` 8 an attention ring wraps; the
+    Mamba and RWKV states ignore it), feeding the reference's greedy
+    tokens to both; every cache leaf against the reference's at the end.
+    Where the model routes, every router margin exceeds
+    ``ROUTER_MARGIN``."""
     jcfg, tcfg, tree, p = ref_weights(arch)
     jcfg = jcfg.replace(decode_window=decode_window)
     tcfg = tcfg.replace(decode_window=decode_window)
@@ -301,10 +345,16 @@ def test_prefill_and_decode_steps_equal_reference(arch, decode_window):
                                             "cache": tc, "decode_pos": pos})
         close(tl, jl)
         pos += 1
-    for js, ts in zip(jc, tc):                 # the caches, layer by layer
-        for r, lc in enumerate(ts["caches"]):
-            close(lc["mixer"]["k"], np.array(js["caches"][0]["mixer"]["k"])[r],
-                  1e-5)
+    assert all(m > ROUTER_MARGIN for m in router_margins), router_margins
+    for stage, js, ts in zip(tcfg.stages, jc, tc):  # caches, layer by layer
+        n = len(stage.pattern)
+        for i, lc in enumerate(ts["caches"]):
+            want = dict(_leaves(js["caches"][i % n]))
+            got = dict(_leaves(lc))
+            assert set(got) == set(want) and got
+            for key, t in got.items():
+                assert t.dtype == getattr(torch, want[key].dtype.name)
+                close(t, np.array(want[key])[i // n], 1e-5)
 
 
 def test_decode_logits_equal_a_fresh_prefill():
@@ -326,15 +376,16 @@ def test_decode_logits_equal_a_fresh_prefill():
 
 
 def test_init_model_matches_the_reference_tree():
-    for arch in ("qwen3-4b", "minicpm-2b", "hubert-xlarge"):
+    for arch in ("qwen3-4b", "minicpm-2b", "hubert-xlarge", *FAMILIES):
         jcfg, tcfg, tree, ref = ref_weights(arch)
         mine = init_model(tcfg, torch.Generator().manual_seed(0),
                           device="cpu")
         flat = lambda d: {k: (v.shape, v.dtype) for k, v in  # noqa: E731
                           _leaves(d)}
         assert flat(mine) == flat(ref)
-        assert len(mine["stages"][0]["layers"]) == tcfg.n_layers
-    c = init_cache(tcfg, 3, 16, device="cpu")
+        assert sum(len(s["layers"]) for s in mine["stages"]) == \
+            tcfg.n_layers
+    c = init_cache(ref_weights("hubert-xlarge")[1], 3, 16, device="cpu")
     assert c[0]["caches"][0]["mixer"]["k"].shape == (3, 16, 4, 64)
 
 
@@ -409,12 +460,26 @@ def test_serve_tokens_cli_prints_the_reference_first_response(monkeypatch,
     """``launch.serve --payload tokens --device cpu`` with the reference's
     weights (the port's ``init_model`` draws its own, so the engine's
     default draw is replaced by the reference's seed-0 weights)."""
+    _serve_tokens_cli(monkeypatch, capsys, [])
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_tokens_cli_new_families_print_the_reference_first_response(
+        monkeypatch, capsys, arch):
+    """The same for the smoke presets of the families ported last."""
+    _serve_tokens_cli(monkeypatch, capsys, ["--arch", arch])
+
+
+def _serve_tokens_cli(monkeypatch, capsys, extra):
     def ref_init(cfg, generator, device=None):
-        tree = jax.tree.map(np.array, jinit(jget(cfg.name.removesuffix(
-            "-smoke"), preset="smoke"), jax.random.PRNGKey(0)))
+        arch = next(a for a in ARCH_IDS
+                    if get_config(a, preset="smoke").name == cfg.name)
+        tree = jax.tree.map(np.array, jinit(jget(arch, preset="smoke"),
+                                            jax.random.PRNGKey(0)))
         return params_from_numpy(cfg, tree, device=device)
 
-    argv = ["--payload", "tokens", "--requests", "3", "--n-replicas", "2"]
+    argv = ["--payload", "tokens", "--requests", "3", "--n-replicas", "2",
+            *extra]
     monkeypatch.setattr(sys, "argv", ["serve"] + argv)
     jserve.main()
     want = capsys.readouterr().out

@@ -267,3 +267,145 @@ def test_decode_against_prefill_catches_planted_faults(qwen3_smoke_f32,
         assert worst > smoke.LLM_F32_TOL
     assert attention.apply_rope is apply_rope
     assert attention._write_ring is sound
+
+
+FAMILIES = ("rwkv6-3b", "jamba-v0.1-52b", "deepseek-v3-671b", "grok-1-314b")
+
+
+@pytest.fixture(scope="module")
+def family_smoke_f32():
+    """Each family's smoke preset (float32) with the port's seed-0
+    weights and a 16-token prompt, built once a module."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    built = {}
+
+    def get(arch):
+        if arch not in built:
+            cfg = get_config(arch, preset="smoke")
+            params = init_model(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+            prompt = np.random.default_rng(0).integers(
+                0, cfg.vocab_size - 1, 16)
+            built[arch] = cfg, params, prompt
+        return built[arch]
+    return get
+
+
+@pytest.mark.parametrize("arch,fault", [
+    (a, f) for a in FAMILIES for f in (None, *smoke.FAMILY_FAULTS[a])])
+def test_family_decode_against_prefill_catches_planted_faults(
+        family_smoke_f32, arch, fault):
+    """chip_smoke's decode-against-prefill reading on each family's smoke
+    preset in float32 on the CPU, capacity lifted to E / k as the smoke
+    lifts it: the sound decode within ``LLM_F32_TOL`` with the greedy
+    tokens equal (and, with MoE layers, the prefill's own router choosing
+    the new token's experts as the decode did at every step); each of the
+    family's ``FAMILY_FAULTS`` (the latent slot not written or one on, the
+    Mamba state or conv window not carried, the RWKV state or token shift
+    not carried, GQA's three) above it; every model module sound again
+    afterwards."""
+    from repro_torch.models import attention, mamba, moe, rwkv
+    sound = {(m, n): getattr(m, n) for m, n, _ in smoke.FAULTS.values()}
+    route = moe.route
+    cfg, params, prompt = family_smoke_f32(arch)
+    rows = smoke.decode_gaps(smoke.lift_capacity(cfg), params, prompt,
+                             smoke.LLM_NEW, fault)
+    worst = max(r[1] for r in rows)
+    if fault is None:
+        assert worst <= smoke.LLM_F32_TOL
+        assert all(r[3] for r in rows)
+        assert all(r[5] is None or r[5][0] for r in rows)
+    else:
+        assert worst > smoke.LLM_F32_TOL
+    assert all(getattr(m, n) is f for (m, n), f in sound.items())
+    assert moe.route is route and {attention, mamba, rwkv} == {
+        m for m, _, _ in smoke.FAULTS.values()}
+
+
+@pytest.mark.parametrize("variant", list(smoke.VARIANTS))
+def test_decode_variants_are_sound_in_float32(family_smoke_f32, variant):
+    """Each of chip_smoke's ``VARIANTS`` (a decode step computed another
+    way, to find where a bf16 gap comes from) is the same arithmetic in
+    float32: on jamba's smoke preset decode against prefill stays within
+    ``LLM_F32_TOL`` with the greedy tokens equal, and the sound step is
+    back afterwards."""
+    from repro_torch.models import mamba
+    sound = mamba._decode_step
+    cfg, params, prompt = family_smoke_f32("jamba-v0.1-52b")
+    rows = smoke.decode_gaps(smoke.lift_capacity(cfg), params, prompt,
+                             smoke.LLM_NEW, variant)
+    assert max(r[1] for r in rows) <= smoke.LLM_F32_TOL
+    assert all(r[3] for r in rows)
+    assert mamba._decode_step is sound
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_layer_gaps_read_each_layer_in_order(family_smoke_f32, arch):
+    """chip_smoke's ``layer_gaps`` gives one row a layer, in the model's
+    order with its mixer and ffn, each layer's decode output within
+    ``LLM_F32_TOL`` of the fresh prefill's in float32; the rope fault,
+    where the family has it, shows at a layer; ``apply_layer`` is the
+    sound one afterwards."""
+    from repro_torch.models import transformer
+    sound = transformer.apply_layer
+    cfg, params, prompt = family_smoke_f32(arch)
+    cfg = smoke.lift_capacity(cfg)
+    gaps = smoke.layer_gaps(cfg, params, prompt)
+    assert [(g[0], g[1]) for g in gaps] == [
+        (spec.mixer, spec.ffn) for st in cfg.stages
+        for spec in list(st.pattern) * st.repeats]
+    assert all(0 <= e <= smoke.LLM_F32_TOL < h for _, _, e, h in gaps)
+    rope = "rope at decode_pos - 1"       # a carry fault shows at step 1
+    if rope in smoke.FAMILY_FAULTS[arch]:
+        assert max(e for _, _, e, _ in smoke.layer_gaps(
+            cfg, params, prompt, rope)) > smoke.LLM_F32_TOL
+    assert transformer.apply_layer is sound
+
+
+def test_moe_capacity_lift_is_why_decode_equals_prefill(family_smoke_f32):
+    """At grok-1's published capacity factor (1.25) a prompt of one token
+    repeated sends every token to the same experts and overflows them:
+    the prefill drops (token, expert) pairs, the last tokens first, and a
+    one-token decode (C = 4, never dropping) then differs from the fresh
+    prefill beyond ``LLM_F32_TOL``.  With the factor lifted to E / k
+    (C >= T) nothing drops and decode equals prefill within it."""
+    import numpy as np
+
+    from repro_torch.runtime import make_prefill_step
+    cfg, params, _ = family_smoke_f32("grok-1-314b")
+    assert cfg.moe.capacity_factor == 1.25
+    prompt = np.full(16, 7)
+    with smoke.moe_log() as log:
+        make_prefill_step(cfg)(params, {"tokens": torch.as_tensor(
+            prompt)[None]})
+    assert sum(d for _, d in log["drops"]) > 0
+    published = smoke.decode_gaps(cfg, params, prompt, smoke.LLM_NEW)
+    assert max(r[1] for r in published) > smoke.LLM_F32_TOL
+    lifted = smoke.lift_capacity(cfg)
+    with smoke.moe_log() as log:
+        make_prefill_step(lifted)(params, {"tokens": torch.as_tensor(
+            prompt)[None]})
+    assert sum(d for _, d in log["drops"]) == 0
+    rows = smoke.decode_gaps(lifted, params, prompt, smoke.LLM_NEW)
+    assert max(r[1] for r in rows) <= smoke.LLM_F32_TOL
+
+
+def test_forced_routing_routes_as_told_and_restores():
+    """``forced_routing`` makes ``models.moe.route`` return the experts it
+    is given, weighted by the router's own normalized scores at them, and
+    puts the sound ``route`` back."""
+    from repro_torch.models import moe
+    from repro_torch.models.config import MoEConfig
+    m = MoEConfig(n_experts=4, top_k=2, d_ff=8)
+    g = torch.Generator().manual_seed(0)
+    x, w = torch.randn((5, 8), generator=g), torch.randn((8, 4), generator=g)
+    forced = torch.tensor([[3, 0]] * 5)
+    sound = moe.route
+    with smoke.forced_routing([forced]):
+        wt, idx, _ = moe.route(x, w, m)
+    assert moe.route is sound and torch.equal(idx, forced)
+    p = torch.softmax(x @ w, -1).gather(-1, forced)
+    assert torch.allclose(wt, p / p.sum(-1, keepdim=True))

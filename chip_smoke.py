@@ -197,9 +197,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``LLM_F32_TOL`` (logits, MTP logits), and decode against prefill on
    the card within it with the faults above it.  A float32 copy of a
    full-width MoE layer is left out: it would take 11-45 GB on the host;
-16. ``[llm-smoke]`` (last): each family's smoke preset in float32 on the
-   card against the CPU from the same weights, logits (and MTP logits)
-   within ``LLM_F32_TOL``, every routing decision equal.
+16. ``[llm-smoke]``: each family's smoke preset in float32 on the card
+   against the CPU from the same weights, logits (and MTP logits) within
+   ``LLM_F32_TOL``, every routing decision equal;
+17. LLM training (``[llm-train]``): minicpm-2b at its published widths,
+   all 40 layers (2,725,173,504 bf16 parameters, the reference's count;
+   float32 AdamW moments), from ``train_state_init`` (seed 0 on the
+   card), ``make_train_step(remat=True)`` with AdamW at its defaults and
+   the WSD schedule over ``LLM_TRAIN_STEPS`` = 16 steps, on
+   ``LMBatchIterator`` batches of 2 x 2048 tokens (T = S = 2048: the
+   chunked attention, whose calls and recomputed tiles are counted in
+   one step): each step's metrics, ms a step by CUDA events (the first
+   apart), tokens a second and peak memory; every metric finite and the
+   mean loss of the last 3 steps below the first step's; ``--profile``
+   adds one step under the profiler (device busy share, largest rows);
+18. ``[llm-train-f32]``: minicpm-2b at full width cut to 2 layers, in
+   float32, two train steps on the card and on the CPU from the same
+   state: metrics within ``TRAIN_F32_RTOL``, ``grad_fn``'s gradients at
+   both steps within ``GRAD_RTOL`` + ``GRAD_ATOL``, the moments within
+   ``PARAM_RTOL`` + ``MOMENT_ATOL``, the parameters under
+   ``hold_adam_step``; then on the card whether two runs of ``grad_fn``
+   are bit-equal, and remat on against off;
+19. ``[train-smoke]``: the same on every architecture's smoke preset
+   (all ten of ``ARCH_IDS``): MLA, MoE with drops, Mamba, RWKV, the MTP
+   loss, audio and VLM batches through autograd on the card;
+20. ``[train-ckpt]`` (last): minicpm-2b's smoke preset in bf16, 3 steps,
+   saved, restored into a fresh state (every leaf bit for bit), 3 more,
+   equal to 6 uninterrupted steps (bit for bit where the card repeated
+   its gradients in 18); then ``launch.train --device cuda --preset
+   smoke --steps 20 --checkpoint`` must print its round-trip line.  The
+   eight kernels' launches are counted from zero over 17-20 and must all
+   be 0: the reference's training reaches no Pallas kernel.
 
 ``--profile`` adds one more serve of each path (the NVR serve staged and
 fused) under ``torch.profiler``
@@ -220,10 +248,11 @@ share of the bound,
 and, where one PyTorch call computes the same function, that call's time
 (SDPA for the two attention kernels; used for comparison only).
 
-The token phases launch none of the eight kernels: the model code
-computes attention with ``models.attention.sdpa``, the Mamba scan and
-the RWKV recurrence in plain tensor code, as the reference's does;
-``[rwkv-model]``'s one scan launch is a check beside the model.
+The token and training phases launch none of the eight kernels: the
+model code computes attention with ``models.attention.sdpa`` and its
+chunked online softmax, the Mamba scan and the RWKV recurrence in plain
+tensor code, as the reference's does; ``[rwkv-model]``'s one scan launch
+is a check beside the model.
 
 The third-to-last line is a JSON object with one entry per kernel, the
 second-to-last the card's name and power limit, the last
@@ -257,11 +286,13 @@ from repro_torch.core.stream import BENCHMARK_VIDEOS, SyntheticVideo  # noqa: E4
 from repro_torch.detector import (SSDConfig, decode_detections,  # noqa: E402,E501
                                   init_ssd, make_anchors, params_to,
                                   ssd_candidates)
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.data import LMBatchIterator, make_modality_batch  # noqa: E402,E501
 from repro_torch.device import ieee_float32  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.launch import daemon as launch_daemon  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.daemon import (ServingDaemon, VirtualClock,  # noqa: E402,E501
                                        WallClock)
 from repro_torch.models import (LayerSpec, Stage,  # noqa: E402
@@ -275,7 +306,14 @@ from repro_torch.models import transformer as llm_transformer  # noqa: E402,E501
 from repro_torch.obs import (TraceRecorder, audit_events,  # noqa: E402
                              audit_recorder, events_from_chrome,
                              write_chrome_trace)
-from repro_torch.runtime import make_decode_step, make_prefill_step  # noqa: E402,E501
+from repro_torch.optim import AdamWConfig, make_schedule  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
+from repro_torch.runtime import (grad_fn, make_decode_step,  # noqa: E402
+                                 make_prefill_step, make_train_step,
+                                 train_state_init)
+from repro_torch.runtime.checkpoint import (checkpoint_step,  # noqa: E402
+                                            restore_checkpoint,
+                                            save_checkpoint)
 from repro_torch.kernels import association as kassoc  # noqa: E402
 from repro_torch.kernels import decode_attention as kdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
@@ -323,6 +361,10 @@ BATCH_ATOL = 1e-6
 # hand-written kernels whose time a launch --profile prints for a serve
 SERVE_KERNELS = ("nms_kernel", "assign_kernel", "crop_kernel",
                  "uncrop_kernel")
+# traces a `[profile ...]` call may take when the profiler records no
+# device event at all (it did so once in a run: 41 launches, no record)
+PROFILE_TRIES = 3
+PROFILE_MARGIN_S = 0.005        # idle host time at a traced step's edges
 IOU_PAIR_FLOPS = 13             # 4 min/max, 2 sub, 2 clamp, mul, add, sub,
                                 # max, div (+ 3 a box for its area)
 SSD300_ANCHORS = 8732           # SSD300's default boxes (the SSD paper);
@@ -463,6 +505,25 @@ FAMILY_F32 = {
                          "the first 2 layers (MLA + dense ffn) and the MTP "
                          "head"),
 }
+# [llm-train]: minicpm-2b at its published widths (all 40 layers, bf16),
+# the reference launcher's default architecture, with its WSD schedule
+LLM_TRAIN_ARCH = "minicpm-2b"
+LLM_TRAIN_PARAMS = 2725173504   # jax.eval_shape of the reference's init_model
+LLM_TRAIN_BATCH = 2
+LLM_TRAIN_SEQ = 2048            # T = S = 2048: the chunked attention path
+LLM_TRAIN_STEPS = 16
+# [llm-train-f32], [train-smoke], [train-ckpt]: float32 (the last bf16),
+# two steps, cuda against cpu; tolerances as tests/test_torch_train*.py:
+# metrics relative, gradients rtol + atol, the moments rtol + atol, the
+# parameters by adam_step_tolerance (|g| > SMALL_GRAD) or 2 lr
+TRAIN_F32_BATCH = 2
+TRAIN_F32_SEQ = 64
+TRAIN_F32_RTOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
+PARAM_RTOL = 1e-5
+MOMENT_ATOL = 1e-7
+SMALL_GRAD = 1e-5
+CKPT_STEPS = (3, 3)             # steps before the save, steps after
 # the reference's float32 kernel tolerance (tests/test_kernels.py), rtol =
 # atol, five times that for the RWKV state; a bfloat16 case is held to it
 # before its one final rounding (hold_to_plain)
@@ -1196,21 +1257,31 @@ def device_ms_a_call(label, calls, reps=20):
     call, and the profiler must record that kernel and no other.  The
     profiler can drop some of a trace's kernel records (as few as 1 of
     20 recorded, once), so the time is the recorded kernel time over the
-    recorded launches.  Returns ``{name: ms}``."""
+    recorded launches.  It has also recorded no device event at all in
+    one trace of a run: a trace with none is taken again, at most
+    ``PROFILE_TRIES`` times, each with its launches counted exactly.
+    Returns ``{name: ms}``."""
     out = {}
     for name, kernel, fn in calls:
-        before = ops.launches()
-        got = profile_calls(label, [(name, fn)], reps=reps)[name]
-        after = ops.launches()
-        grew = {k: after[k] - before[k] for k in after
-                if after[k] != before[k]}
-        # profile_calls makes 2 * reps + 1 calls (one untraced, a
-        # dropped warm-up step, the counted step)
-        check(list(grew.values()) == [2 * reps + 1] and len(got) == 1
-              and kernel in got[0][2],
+        for attempt in range(1, PROFILE_TRIES + 1):
+            before = ops.launches()
+            got = profile_calls(label, [(name, fn)], reps=reps)[name]
+            after = ops.launches()
+            grew = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+            # profile_calls makes 2 * reps + 1 calls (one untraced, a
+            # dropped warm-up step, the counted step)
+            check(list(grew.values()) == [2 * reps + 1],
+                  f"{name}: launches counted {grew} for {2 * reps + 1} "
+                  f"calls; not one {kernel} a call")
+            if got or attempt == PROFILE_TRIES:
+                break
+            print(f"[profile {label}] {name}: trace {attempt} recorded no "
+                  f"device event; tracing again")
+        check(len(got) == 1 and kernel in got[0][2],
               f"{name}: launches counted {grew} for {2 * reps + 1} calls, "
-              f"kernels recorded {[(r[1], r[2]) for r in got]}; not one "
-              f"{kernel} a call")
+              f"kernels recorded {[(r[1], r[2]) for r in got]} in trace "
+              f"{attempt} of {PROFILE_TRIES}; not one {kernel} a call")
         out[name] = got[0][0] / got[0][1] / 1e3
         print(f"[profile {label}] {name}: {out[name]:.4f} ms a launch, one "
               f"{kernel[2:]} a call ({2 * reps + 1} calls counted, "
@@ -1380,15 +1451,20 @@ def profile_calls(label, calls, reps=5):
         torch.cuda.synchronize()
         # a warm-up step is traced and dropped before the step that counts:
         # a trace's first launches can go unrecorded (one of 20 was lost
-        # once), and the callers hold the counts exactly
+        # once), and the callers hold the counts exactly; each step's
+        # launches stand PROFILE_MARGIN_S clear of the step's edges, since
+        # the profiler drops device records that it places outside the
+        # traced window
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             for _ in range(2):
+                time.sleep(PROFILE_MARGIN_S)
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(PROFILE_MARGIN_S)
                 prof.step()
         out[name] = _device_rows(prof)
         for dev_us, count, key in out[name][:4]:
@@ -3618,6 +3694,410 @@ def phase_families_smoke_f32():
                          prompts)
 
 
+# ------------------------------------------------------- llm training
+def counted(mod, name, counts):
+    """``mod.name`` wrapped to add one to ``counts[name]`` a call (the
+    context restores it)."""
+    sound = getattr(mod, name)
+
+    def wrapper(*a, **kw):
+        counts[name] = counts.get(name, 0) + 1
+        return sound(*a, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        setattr(mod, name, wrapper)
+        try:
+            yield counts
+        finally:
+            setattr(mod, name, sound)
+    return ctx()
+
+
+def _finite(metrics):
+    return all(bool(torch.isfinite(v).all()) for v in metrics.values())
+
+
+def phase_llm_train(profile=False):
+    """``[llm-train]``: minicpm-2b at its published widths (all 40 layers,
+    bf16 parameters, random from seed 0 on the card) trained
+    ``LLM_TRAIN_STEPS`` steps by ``make_train_step(remat=True)`` with
+    AdamW at its defaults and the WSD schedule, on ``LMBatchIterator``
+    batches of ``LLM_TRAIN_BATCH`` x ``LLM_TRAIN_SEQ`` tokens (T = S =
+    2048: the chunked attention, each key tile recomputed in backward,
+    counted).  Prints each step's metrics, ms a step by CUDA events (the
+    first step apart), tokens a second and peak memory; gates on every
+    metric finite and the mean loss of the last 3 steps below the first
+    step's."""
+    cfg = get_config(LLM_TRAIN_ARCH)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig()
+    t0 = time.perf_counter()
+    state = train_state_init(cfg, torch.Generator(device=DEV).manual_seed(
+        SEED), opt, DEV)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(state["params"]))
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"[llm-train] {LLM_TRAIN_ARCH} at its published widths: "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (tied), {cfg.param_dtype}: {n_params} "
+          f"parameters, {n_bytes} bytes, float32 moments; state drawn on "
+          f"the card in {time.perf_counter() - t0:.2f} s; reduced: nothing")
+    check(n_params == LLM_TRAIN_PARAMS,
+          f"{n_params} parameters, the reference's {LLM_TRAIN_PARAMS}")
+    sched = make_schedule("wsd", opt.peak_lr, LLM_TRAIN_STEPS,
+                          warmup_steps=max(2, LLM_TRAIN_STEPS // 10))
+    step = make_train_step(cfg, opt, sched, remat=True, donate=True)
+    t0 = time.perf_counter()
+    it = iter(LMBatchIterator(cfg, LLM_TRAIN_BATCH, LLM_TRAIN_SEQ,
+                              device=DEV))
+    batches = [next(it) for _ in range(LLM_TRAIN_STEPS)]
+    print(f"[llm-train] {LLM_TRAIN_STEPS} batches of {LLM_TRAIN_BATCH} x "
+          f"{LLM_TRAIN_SEQ} tokens made in {time.perf_counter() - t0:.2f} "
+          f"s (set-up)")
+    rows, ms = [], []
+    counts = {}
+    for i, batch in enumerate(batches):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        with contextlib.ExitStack() as stack:
+            if i == 1:      # the chunked path and its recompute, one step
+                for name in ("_sdpa_chunked", "_kv_step"):
+                    stack.enter_context(counted(llm_attention, name, counts))
+            e0.record()
+            state, metrics = step(state, batch)
+            e1.record()
+            torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        row = {k: float(v) for k, v in metrics.items()}
+        rows.append(row)
+        print(f"[llm-train] step {i:2d} " + " ".join(
+            f"{k}={v:.6g}" for k, v in row.items())
+              + f" ({ms[-1]:.3f} ms)")
+        check(_finite(metrics), f"llm-train step {i}: a metric is not "
+              f"finite: {row}")
+    peak = torch.cuda.max_memory_allocated()
+    steady = ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    tokens = LLM_TRAIN_BATCH * LLM_TRAIN_SEQ
+    n_tiles = (LLM_TRAIN_SEQ // llm_attention.Q_CHUNK) * (
+        LLM_TRAIN_SEQ // llm_attention.K_CHUNK)
+    print(f"[llm-train] chunked attention in one step: {counts} calls "
+          f"({cfg.n_layers} layers x 2: forward and the layer's recompute; "
+          f"{n_tiles} tiles a call, and each tile once more in backward)")
+    check(counts.get("_sdpa_chunked") == 2 * cfg.n_layers and
+          counts.get("_kv_step") == 3 * n_tiles * cfg.n_layers,
+          f"llm-train: chunked attention calls {counts}")
+    last = sum(r["total_loss"] for r in rows[-3:]) / 3
+    print(f"[llm-train] {LLM_TRAIN_STEPS} steps: first step "
+          f"{ms[0]:.3f} ms, then {mean_ms:.3f} ms a step (CUDA events; "
+          f"min {min(steady):.3f}, max {max(steady):.3f}), "
+          f"{tokens / mean_ms * 1e3:.1f} tokens/s; peak memory {peak} "
+          f"bytes; loss {rows[0]['total_loss']:.4f} -> mean of the last 3 "
+          f"{last:.4f}; {gpu_line()}")
+    check(last < rows[0]["total_loss"],
+          f"llm-train: loss did not fall ({rows[0]['total_loss']} -> {last})")
+    if profile:
+        profile_train_step(step, state, batches[-1])
+    del state, batches
+    free_cuda()
+    return {"ms": mean_ms, "peak": peak}
+
+
+def profile_train_step(step, state, batch):
+    """One more training step under ``torch.profiler``: host wall, device
+    busy and its share, device events, and the largest device rows."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    print(f"[profile llm-train] wall {wall_ms:.3f} ms a step (profiled), "
+          f"device busy {busy_ms:.3f} ms = {busy_ms / wall_ms:.3f} of wall, "
+          f"{sum(r[1] for r in rows)} device events a step")
+    for dev_us, count, key in rows[:10]:
+        print(f"[profile llm-train] {dev_us / 1e3:9.3f} ms {count:6d}x  "
+              f"{key[:90]}")
+
+
+def adam_step_tolerance(lr, p, g0, g1, m, v, scales, opt):
+    """Per element, how far a parameter after a run's second AdamW step
+    may sit from another run's, when both start from the same state and
+    their gradients at steps 1 and 2 differ by at most ``GRAD_RTOL`` |g| +
+    ``GRAD_ATOL`` (each times its clip scale in ``scales``):
+    ``PARAM_RTOL`` of the parameter plus lr times the change that makes
+    to ``mhat / (sqrt(vhat) + eps)`` to first order, at the other run's
+    moments ``m``, ``v`` after step 2 (numpy, float64).  Where the first
+    moment nearly cancels (0.9 * 0.1 g1 + 0.1 g2 near 0) a gradient
+    difference well inside the tolerance moves Adam's step by a few 1e-4
+    of lr, beyond ``PARAM_RTOL`` alone."""
+    s0, s1 = scales
+    e0 = s0 * (GRAD_RTOL * np.abs(g0) + GRAD_ATOL)
+    e1 = s1 * (GRAD_RTOL * np.abs(g1) + GRAD_ATOL)
+    b1, b2 = opt.b1, opt.b2
+    dm = b1 * (1 - b1) * e0 + (1 - b1) * e1
+    dv = 2 * (b2 * (1 - b2) * s0 * np.abs(g0) * e0
+              + (1 - b2) * s1 * np.abs(g1) * e1)
+    mhat, dmhat = np.abs(m) / (1 - b1 ** 2), dm / (1 - b1 ** 2)
+    vhat, dvhat = v / (1 - b2 ** 2), dv / (1 - b2 ** 2)
+    root = np.sqrt(vhat)
+    dratio = dmhat / (root + opt.eps) + mhat * dvhat / (
+        2 * np.maximum(root, 1e-150) * (root + opt.eps) ** 2)
+    return PARAM_RTOL * np.abs(p) + lr * dratio
+
+
+def hold_adam_step(tag, got, want, g0, g1, m, v, scales, lr, opt):
+    """The parameters ``got`` after a second AdamW step against ``want``
+    (both trees): where ``want``'s gradient |g1| > ``SMALL_GRAD`` within
+    ``adam_step_tolerance``, elsewhere within 2 lr plus ``PARAM_RTOL``
+    (Adam's step is +-lr there, the sign mostly rounding).  Returns the
+    count of elements in the second group and of elements beyond
+    ``PARAM_RTOL`` alone in the first."""
+    n_small = n_cond = 0
+    for a, b, x0, x1, mm, vv in zip(*(tree_leaves(t) for t in (
+            got, want, g0, g1, m, v))):
+        a, b, x0, x1, mm, vv = (t.detach().cpu().double().numpy() for t in
+                                (a, b, x0, x1, mm, vv))
+        diff = np.abs(a - b)
+        tol = adam_step_tolerance(lr, b, x0, x1, mm, vv, scales, opt)
+        large = np.abs(x1) > SMALL_GRAD
+        over = diff > np.where(large, tol, 2 * lr + PARAM_RTOL * np.abs(b))
+        if over.any():
+            raise SmokeFailure(f"{tag}: a parameter off by "
+                               f"{float(diff[over].max())} (lr {lr})")
+        n_small += int((~large).sum())
+        n_cond += int((large & (diff > PARAM_RTOL * np.abs(b))).sum())
+    return n_small, n_cond
+
+
+def grads_close(tag, got, want):
+    """Gradient trees within ``GRAD_RTOL`` |want| + ``GRAD_ATOL``; returns
+    the largest excess of |got - want| over ``GRAD_RTOL`` |want|."""
+    worst = -1.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        excess = float(((a - b).abs() - GRAD_RTOL * b.abs()).max())
+        worst = max(worst, excess)
+    check(worst <= GRAD_ATOL, f"{tag}: gradients cuda vs cpu off by "
+          f"{worst} beyond rtol {GRAD_RTOL} (atol {GRAD_ATOL})")
+    return worst
+
+
+def train_batches(cfg, n, device):
+    """``n`` training batches of ``TRAIN_F32_BATCH`` x ``TRAIN_F32_SEQ``,
+    made as the reference launcher makes them, on ``device``."""
+    if cfg.modality == "text":
+        it = iter(LMBatchIterator(cfg, TRAIN_F32_BATCH, TRAIN_F32_SEQ,
+                                  device=device))
+        return [next(it) for _ in range(n)]
+    return [make_modality_batch(cfg, TRAIN_F32_BATCH, TRAIN_F32_SEQ, seed=i,
+                                device=device) for i in range(n)]
+
+
+def two_steps(cfg, state, batches, opt):
+    """Two ``make_train_step(remat=True)`` steps (lr 0, then the peak:
+    WSD over 2 steps) from ``state``, with ``grad_fn``'s gradients at
+    each step's parameters: (states after 1 and 2 steps, gradients at
+    both, metrics of both)."""
+    sched = make_schedule("wsd", opt.peak_lr, 2, warmup_steps=1)
+    step = make_train_step(cfg, opt, sched, remat=True)
+    g0, _ = grad_fn(state["params"], cfg, batches[0], remat=True)
+    s1, m0 = step(state, batches[0])
+    g1, _ = grad_fn(s1["params"], cfg, batches[1], remat=True)
+    s2, m1 = step(s1, batches[1])
+    return (s1, s2), (g0, g1), (m0, m1)
+
+
+def train_card_against_cpu(tag, what, cfg, state, opt):
+    """``two_steps`` on the card and on the CPU from the same float32
+    state: each step's metrics within ``TRAIN_F32_RTOL`` relative, the
+    gradients within ``GRAD_RTOL`` + ``GRAD_ATOL``, the moments after
+    step 2 within ``PARAM_RTOL`` + ``MOMENT_ATOL``, and the parameters
+    under ``hold_adam_step``.  Returns the card's states."""
+    cpu_state = params_to(state, "cpu")
+    batches = train_batches(cfg, 2, "cpu")
+    t0 = time.perf_counter()
+    gs, gg, gm = two_steps(cfg, state, [{k: v.to(DEV) for k, v in
+                                         b.items()} for b in batches], opt)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cs, cg, cm = two_steps(cfg, cpu_state, batches, opt)
+    t2 = time.perf_counter()
+    worst_metric = 0.0
+    for i, (a, b) in enumerate(zip(gm, cm)):
+        check(_finite(a), f"{what} step {i}: a metric is not finite")
+        check(set(a) == set(b), f"{what}: metrics {set(a)} vs {set(b)}")
+        for k in b:
+            err = abs(float(a[k]) - float(b[k])) / max(abs(float(b[k])),
+                                                       1e-30)
+            if float(b[k]) == 0.0:
+                err = abs(float(a[k]))
+            worst_metric = max(worst_metric, err)
+            check(err <= TRAIN_F32_RTOL, f"{what} step {i} {k}: cuda "
+                  f"{float(a[k])} vs cpu {float(b[k])}")
+    worst_grad = max(grads_close(f"{what} step {i}", a, b)
+                     for i, (a, b) in enumerate(zip(gg, cg)))
+    for key in ("m", "v"):
+        for a, b in zip(tree_leaves(gs[1]["opt"][key]),
+                        tree_leaves(cs[1]["opt"][key])):
+            a, b = a.cpu().double(), b.double()
+            check(bool(((a - b).abs() <= PARAM_RTOL * b.abs()
+                        + MOMENT_ATOL).all()),
+                  f"{what}: moment {key} cuda vs cpu")
+    lr = float(cm[1]["lr"])
+    scales = [min(1.0, opt.grad_clip / (float(m["grad_norm"]) + 1e-9))
+              for m in cm]
+    n_small, n_cond = hold_adam_step(
+        what, gs[1]["params"], cs[1]["params"], cg[0], cg[1],
+        cs[1]["opt"]["m"], cs[1]["opt"]["v"], scales, lr, opt)
+    n_all = sum(t.numel() for t in tree_leaves(cs[1]["params"]))
+    print(f"[{tag}] {what} float32, 2 steps of {TRAIN_F32_BATCH} x "
+          f"{TRAIN_F32_SEQ} (cuda {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s, "
+          f"with grad_fn's gradients): losses "
+          f"{float(gm[0]['total_loss']):.6f}, {float(gm[1]['total_loss']):.6f}"
+          f"; metrics cuda vs cpu within {worst_metric:.3g} relative (held "
+          f"to {TRAIN_F32_RTOL}); gradients within {worst_grad:.3g} beyond "
+          f"rtol {GRAD_RTOL} (atol {GRAD_ATOL}); parameters after step 2 "
+          f"under the Adam rule ({n_small} of {n_all} at |g| <= "
+          f"{SMALL_GRAD}, {n_cond} beyond rtol alone)")
+    return gs
+
+
+def bits_equal(a, b):
+    """Two trees equal bit for bit (NaN equal to itself)."""
+    return all(x.dtype == y.dtype and torch.equal(
+        x.detach().reshape(-1).view(torch.uint8),
+        y.detach().reshape(-1).view(torch.uint8))
+        for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def phase_llm_train_f32():
+    """``[llm-train-f32]``: minicpm-2b at full width cut to 2 layers, in
+    float32, card against CPU (``train_card_against_cpu``); then on the
+    card ``grad_fn`` with remat on and off, and twice with it on: whether
+    each pair is bit-equal.  Returns whether the card's gradients repeat
+    bit for bit."""
+    full = get_config(LLM_TRAIN_ARCH)
+    cfg = full.replace(stages=dense_stages(2), dtype="float32",
+                       param_dtype="float32")
+    opt = AdamWConfig()
+    state = train_state_init(cfg, torch.Generator(device=DEV).manual_seed(
+        SEED), opt, DEV)
+    train_card_against_cpu("llm-train-f32", f"{LLM_TRAIN_ARCH} full width, "
+                           "2 layers,", cfg, state, opt)
+    batch = {k: v.to(DEV) for k, v in train_batches(cfg, 1, "cpu")[0].items()}
+    runs = [grad_fn(state["params"], cfg, batch, remat=r)
+            for r in (True, True, False)]
+    same = bits_equal(runs[0][0], runs[1][0])
+    remat_same = bits_equal(runs[0][0], runs[2][0])
+    diff = ""
+    if not same:
+        leaves = [(name, a, b) for name, a, b in zip(
+            _leaf_names(state["params"]), tree_leaves(runs[0][0]),
+            tree_leaves(runs[1][0])) if not torch.equal(a, b)]
+        diff = "; leaves that differ: " + ", ".join(
+            f"{n} (max {float((a - b).abs().max()):.3g})"
+            for n, a, b in leaves)
+    print(f"[llm-train-f32] on the card: two runs of grad_fn bit-equal: "
+          f"{same}; remat on vs off bit-equal: {remat_same}{diff}")
+    del state, runs
+    free_cuda()
+    return same
+
+
+def _leaf_names(tree, prefix=""):
+    """Path strings of ``tree``'s leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in
+                _leaf_names(tree[k], f"{prefix}.{k}")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree) for n in
+                _leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def phase_train_smoke():
+    """``[train-smoke]``: every architecture's smoke preset in float32,
+    two steps on the card against the CPU from the same weights
+    (``train_card_against_cpu``): MLA, MoE with drops, Mamba, RWKV, the
+    MTP loss, audio and VLM batches through autograd on the card."""
+    opt = AdamWConfig(peak_lr=1e-2)
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, preset="smoke")
+        state = train_state_init(cfg, torch.Generator(
+            device=DEV).manual_seed(SEED), opt, DEV)
+        train_card_against_cpu("train-smoke", f"{arch} smoke preset", cfg,
+                               state, opt)
+
+
+def phase_train_ckpt(deterministic):
+    """``[train-ckpt]``: minicpm-2b's smoke preset in bf16 on the card:
+    ``CKPT_STEPS[0]`` steps, saved, restored into a fresh state, then
+    ``CKPT_STEPS[1]`` more; against the same steps uninterrupted: bit for
+    bit where ``deterministic`` (the card repeated its gradients),
+    else within ``TRAIN_F32_RTOL`` on the losses.  Every restored leaf
+    equals the saved one bit for bit (bf16 included).  Then
+    ``launch.train --device cuda --preset smoke --steps 20 --checkpoint``
+    must print its round-trip line."""
+    cfg = get_config(LLM_TRAIN_ARCH, preset="smoke").replace(
+        dtype="bfloat16", param_dtype="bfloat16")
+    opt = AdamWConfig(peak_lr=3e-3)
+    k, m = CKPT_STEPS
+    sched = make_schedule("wsd", opt.peak_lr, k + m, warmup_steps=2)
+    step = make_train_step(cfg, opt, sched, remat=True)
+    fresh = lambda: train_state_init(cfg, torch.Generator(
+        device=DEV).manual_seed(SEED), opt, DEV)
+    it = iter(LMBatchIterator(cfg, TRAIN_F32_BATCH, TRAIN_F32_SEQ,
+                              device=DEV))
+    batches = [next(it) for _ in range(k + m)]
+    whole, losses = fresh(), []
+    for b in batches:
+        whole, met = step(whole, b)
+        losses.append(float(met["total_loss"]))
+    part = fresh()
+    for b in batches[:k]:
+        part, _ = step(part, b)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "ck"
+        save_checkpoint(path, part, step=k)
+        restored = restore_checkpoint(path, fresh(), device=DEV)
+        check(checkpoint_step(path) == k, "train-ckpt: checkpoint step")
+        check(bits_equal(restored, part), "train-ckpt: a restored leaf "
+              "differs from the saved one")
+        n_bf16 = sum(t.dtype == torch.bfloat16 for t in tree_leaves(part))
+        resumed = []
+        for b in batches[k:]:
+            restored, met = step(restored, b)
+            resumed.append(float(met["total_loss"]))
+        same = bits_equal(restored, whole)
+        print(f"[train-ckpt] {cfg.name} bf16: {k} steps, saved, restored "
+              f"into a fresh state ({n_bf16} bf16 leaves bit for bit), "
+              f"{m} more: losses {resumed} against {losses[k:]} "
+              f"uninterrupted; final state bit-equal: {same}")
+        if deterministic:
+            check(same and resumed == losses[k:],
+                  "train-ckpt: the resumed run differs from the "
+                  "uninterrupted one")
+        else:
+            check(all(abs(a - b) <= TRAIN_F32_RTOL * abs(b)
+                      for a, b in zip(resumed, losses[k:])),
+                  "train-ckpt: resumed losses off the uninterrupted ones")
+        out = run_main_quietly(launch_train.main, [
+            "--device", DEV, "--preset", "smoke", "--steps", "20",
+            "--checkpoint", str(Path(tmp) / "launch")])
+    lines = out.strip().splitlines()
+    print("\n".join(f"[train-ckpt] launch.train: {line}" for line in lines))
+    check(lines[-1].startswith("checkpoint round-trip OK -> "),
+          f"launch.train: {lines[-1]}")
+
+
 def tf32_settings():
     """The legacy TF32 flags and, where this torch has them, the
     per-operation float32 precisions, as strings (a legacy flag that
@@ -3700,6 +4180,15 @@ def main() -> int:
         if launches is not None:
             by_path["rwkv_model"] = launches
     phase_families_smoke_f32()
+    ops.reset_launches()
+    phase_llm_train(profile="--profile" in sys.argv[1:])
+    deterministic = phase_llm_train_f32()
+    phase_train_smoke()
+    phase_train_ckpt(deterministic)
+    torch.cuda.synchronize()
+    by_path["training"] = ops.launches()
+    check(not any(by_path["training"].values()),
+          f"the training phases launched a kernel: {by_path['training']}")
     for k, e in entries.items():
         e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -1,3 +1,4 @@
-"""Entry points of the port: the always-on NVR daemon (``launch.daemon``)
-and the serving launcher (``launch.serve``), each a ``main(argv)`` run as
-``python -m repro_torch.launch.<name>``."""
+"""Entry points of the port: the always-on NVR daemon (``launch.daemon``),
+the serving launcher (``launch.serve``) and the training launcher
+(``launch.train``), each a ``main(argv)`` run as ``python -m
+repro_torch.launch.<name>``."""

@@ -16,7 +16,10 @@ probabilities cast back to the query dtype.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers
 from .config import LayerSpec, MLAConfig, ModelConfig
@@ -65,11 +68,21 @@ def sdpa_masked(q, k, v, q_pos, k_pos, causal, window, k_valid, scale):
 
 def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, scale):
     """Online softmax over (Q_CHUNK, K_CHUNK) tiles, float32 running max,
-    sum and accumulator, the query heads grouped over the KV heads."""
+    sum and accumulator, the query heads grouped over the KV heads.
+    Where grad is enabled each key tile is recomputed in backward
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+    on its ``kv_step``): autograd keeps a tile's inputs and the running
+    (m, l, acc), never its (Q_CHUNK, K_CHUNK) scores, so backward holds
+    O(chunk^2) of them at a time, not O(T*S).  Forward values are the
+    same either way."""
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     G = H // KV
+    step = _kv_step
+    if torch.is_grad_enabled():
+        step = functools.partial(checkpoint, _kv_step, use_reentrant=False,
+                                 preserve_rng_state=False)  # draws nothing
     outs = []
     for qs in range(0, T, Q_CHUNK):
         qb = q[:, qs:qs + Q_CHUNK].reshape(B, Q_CHUNK, KV, G, D)
@@ -81,21 +94,28 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, scale):
         acc = torch.zeros((B, KV, G, Q_CHUNK, Dv), dtype=torch.float32,
                           device=q.device)
         for ks in range(0, S, K_CHUNK):
-            kb, vb = k[:, ks:ks + K_CHUNK], v[:, ks:ks + K_CHUNK]
-            s = torch.einsum("btkgd,bskd->bkgts", qb, kb).float() * scale
-            msk = make_mask(qpb, k_pos[:, ks:ks + K_CHUNK], causal, window)
-            s = torch.where(msk[:, None], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkgts,bskd->bkgtd", p, vb.float())
-            m = m_new
+            m, l, acc = step(qb, k[:, ks:ks + K_CHUNK], v[:, ks:ks + K_CHUNK],
+                             qpb, k_pos[:, ks:ks + K_CHUNK], m, l, acc,
+                             causal, window, scale)
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         # (B,KV,G,Tq,Dv) -> (B,Tq,KV,G,Dv)
         outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
     return torch.cat(outs, dim=1).reshape(B, T, H, Dv)
+
+
+def _kv_step(qb, kb, vb, qpb, kpb, m, l, acc, causal, window, scale):
+    """One key tile of the online softmax: the running (m, l, acc) after
+    the scores of ``qb`` against ``kb``."""
+    s = torch.einsum("btkgd,bskd->bkgts", qb, kb).float() * scale
+    msk = make_mask(qpb, kpb, causal, window)
+    s = torch.where(msk[:, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bkgts,bskd->bkgtd", p, vb.float())
+    return m_new, l, acc
 
 
 def make_mask(q_pos, k_pos, causal, window, k_valid=None):

@@ -82,7 +82,12 @@ def init_embedding(generator, vocab, d_model, dtype):
 
 
 def apply_embedding(params, ids):
-    return params["table"][ids]
+    """Rows ``ids`` of the table.  ``F.embedding``, not indexing: the two
+    gather alike, but indexing's backward (``index_put_`` accumulating)
+    adds a repeated id's rows in an order that changes from run to run
+    on the CPU, where the embedding's backward adds them in a fixed
+    order."""
+    return F.embedding(ids, params["table"])
 
 
 def init_unembed(generator, d_model, vocab, dtype):
@@ -91,3 +96,16 @@ def init_unembed(generator, d_model, vocab, dtype):
 
 def apply_unembed(params, x):
     return x @ params["w"]
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in f32. labels: int ids, mask: optional
+    0/1; the masked mean divides by ``max(sum(mask), 1)``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

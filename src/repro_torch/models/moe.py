@@ -142,7 +142,8 @@ def _moe_flat(p, m: MoEConfig, x_flat, C):
     E, k = m.n_experts, m.top_k
     w, idx, aux = route(x_flat, p["router"]["w"], m)
     slot_tok, slot_w, pair_slot = _dispatch_tables(w, idx, T, E, k, C)
-    x_disp = x_flat[slot_tok].reshape(E, C, d) * (
+    # a gather whose backward adds in a fixed order (layers.apply_embedding)
+    x_disp = F.embedding(slot_tok, x_flat).reshape(E, C, d) * (
         slot_w.reshape(E, C, 1) > 0).to(x_flat.dtype)
     y = _expert_ffn(p["experts"], x_disp)
     y_flat = y.reshape(E * C, d) * slot_w[:, None].to(y.dtype)

@@ -15,10 +15,12 @@ constraints have no counterpart here (the XLA sharding modules are
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import ieee_float32, params_to, resolve_device
 from . import attention, layers, mamba, moe, rwkv
@@ -178,6 +180,20 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
     return params_to(p, device)
 
 
+def train_state_from_numpy(cfg: ModelConfig, state, device=None):
+    """The reference's train state ``{"params", "opt": {"m", "v",
+    "step"}}`` (``jax.tree.map(np.array, state)``) as the port's, on
+    ``device`` (as in ``init_model``): the parameters and both moments
+    through ``params_from_numpy`` (the moments have the parameters'
+    tree, each leaf in its own dtype), the step a 0-d int32 tensor."""
+    device = resolve_device(device)
+    opt = state["opt"]
+    return {"params": params_from_numpy(cfg, state["params"], device),
+            "opt": {"m": params_from_numpy(cfg, opt["m"], device),
+                    "v": params_from_numpy(cfg, opt["v"], device),
+                    "step": _tensor(opt["step"]).to(device)}}
+
+
 def init_cache(cfg: ModelConfig, batch, cache_len, dtype=None, device=None):
     """Zeroed caches, one per layer, on ``device`` (None: ``cuda``): ring
     caches for attention, conv window and state for Mamba, token shifts
@@ -219,17 +235,34 @@ def logits_fn(p, cfg: ModelConfig, h):
     return _unembed(p, cfg, h)
 
 
+def _repetition(lps, lcs, pattern, cfg, h, positions, mode, decode_pos):
+    """One repetition of a stage's pattern (the reference's scan body):
+    (h, the layers' new caches, their auxiliary losses summed)."""
+    ncs, aux_tot = [], dict(ZERO_AUX)
+    for lp, lc, spec in zip(lps, lcs, pattern):
+        h, nc, aux = apply_layer(lp, cfg, spec, h, positions, mode=mode,
+                                 cache=lc, decode_pos=decode_pos)
+        ncs.append(nc)
+        aux_tot = {k: aux_tot[k] + aux[k] for k in aux_tot}
+    return h, ncs, aux_tot
+
+
 @ieee_float32()
 def model_apply(p, cfg: ModelConfig, batch_in: Dict[str, Any],
                 mode: str = "train", cache: Optional[List] = None,
-                decode_pos: Optional[int] = None):
+                decode_pos: Optional[int] = None, remat: bool = False):
     """Returns (logits, new_cache, aux).  ``decode_pos`` is the position
     of the one new token in decode mode.  Float32 products run in IEEE
     float32 whatever the process-wide TF32 settings say
     (``device.ieee_float32``).  ``aux`` holds the auxiliary losses of
     the MoE layers, summed over layers (zero without one), and in train
     mode, for a model with the multi-token-prediction head,
-    ``mtp_logits``."""
+    ``mtp_logits``.  With ``remat`` and grad enabled, each repetition of
+    a stage's pattern is recomputed in backward
+    (``torch.utils.checkpoint``, as the reference checkpoints its scan
+    body): autograd keeps the stage's input to each repetition, not the
+    activations inside it.  Values are the same either way; with grad
+    disabled ``remat`` changes nothing."""
     h = _embed_inputs(p, cfg, batch_in)
     B, S, _ = h.shape
     if mode == "decode":
@@ -237,20 +270,25 @@ def model_apply(p, cfg: ModelConfig, batch_in: Dict[str, Any],
                                device=h.device)
     else:
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    rep = _repetition
+    if remat and torch.is_grad_enabled():
+        rep = functools.partial(checkpoint, _repetition, use_reentrant=False,
+                                preserve_rng_state=False)  # draws nothing
 
     new_caches, aux_tot = [], dict(ZERO_AUX)
     for i, stage in enumerate(cfg.stages):
         lps = p["stages"][i]["layers"]
         lcs = (cache[i]["caches"] if cache is not None
                else [None] * len(lps))
-        specs = list(stage.pattern) * stage.repeats
-        ncs = []
-        for lp, lc, spec in zip(lps, lcs, specs):
-            h, nc, aux = apply_layer(lp, cfg, spec, h, positions, mode=mode,
-                                     cache=lc, decode_pos=decode_pos)
-            ncs.append(nc)
-            aux_tot = {k: aux_tot[k] + aux[k] for k in aux_tot}
+        P = len(stage.pattern)
+        ncs, aux_stage = [], dict(ZERO_AUX)
+        for r in range(0, len(lps), P):
+            h, nc, aux = rep(lps[r:r + P], lcs[r:r + P], stage.pattern, cfg,
+                             h, positions, mode, decode_pos)
+            ncs.extend(nc)
+            aux_stage = {k: aux_stage[k] + aux[k] for k in aux_stage}
         new_caches.append({"caches": ncs})
+        aux_tot = {k: aux_tot[k] + aux_stage[k] for k in aux_tot}
 
     logits = logits_fn(p, cfg, h)
     if cfg.mtp and mode == "train":

@@ -1,12 +1,108 @@
-"""Prefill / decode step builders for serving (the port of the serving
-half of the reference package's ``runtime/steps.py``; ``train_step``,
-``loss_fn`` and the AdamW path wait for ``optim/``, ROADMAP.md section 1,
-item 2).  The reference jits each step; here each is a plain function
-that runs eagerly on the device of its inputs."""
+"""Train / prefill / decode step builders (the port of the reference
+package's ``runtime/steps.py``).  The reference jits each step; here
+each is a plain function that runs eagerly on the device of its inputs.
+
+A train state is the reference's tree, ``{"params": ..., "opt": {"m",
+"v", "step"}}``, of tensors.  The reference's train step passes its
+gradients through ``sharding.rules.constrain_like_params``, which
+returns its input when no mesh is active; the port runs on one device,
+so the step leaves it out.
+"""
 from __future__ import annotations
 
-from ..models import init_cache, model_apply
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+
+from ..device import cudnn_deterministic, ieee_float32
+from ..models import init_cache, init_model, model_apply
 from ..models.config import ModelConfig
+from ..models.layers import cross_entropy
+from ..optim import AdamWConfig, adamw_init, adamw_update
+from ..optim.adamw import tree_map
+
+
+@dataclass
+class TrainState:
+    params: Any
+    opt_state: Any
+
+
+def train_state_init(cfg: ModelConfig, generator: torch.Generator,
+                     opt_cfg: AdamWConfig, device=None):
+    """Parameters drawn from ``generator`` (``models.init_model``) and
+    zero AdamW moments, on ``device`` (None: ``cuda``, raising where no
+    CUDA device exists)."""
+    params = init_model(cfg, generator, device=device)
+    return {"params": params, "opt": adamw_init(params, opt_cfg)}
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict, remat=False):
+    """``(total loss, metrics)``: the masked token cross-entropy, plus the
+    MoE auxiliary losses, plus ``cfg.mtp_loss_weight`` times the
+    multi-token-prediction loss where the model has the head (labels
+    rolled by -1, the mask's last two columns zeroed)."""
+    logits, _, aux = model_apply(params, cfg, batch, mode="train",
+                                 remat=remat)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    loss = cross_entropy(logits, labels, mask)
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                     device=loss.device)
+    metrics = {"ce_loss": loss, "aux_loss": as_t(aux["aux_loss"]),
+               "load_balance": as_t(aux["load_balance"])}
+    total = loss + aux["aux_loss"]
+    if cfg.mtp and "mtp_logits" in aux:
+        mtp_labels = torch.roll(labels, -1, dims=1)
+        mtp_mask = (mask.clone() if mask is not None
+                    else torch.ones(labels.shape, dtype=torch.float32,
+                                    device=labels.device))
+        mtp_mask[:, -2:] = 0.0
+        mtp_loss = cross_entropy(aux["mtp_logits"], mtp_labels, mtp_mask)
+        total = total + cfg.mtp_loss_weight * mtp_loss
+        metrics["mtp_loss"] = mtp_loss
+    metrics["total_loss"] = total
+    return total, metrics
+
+
+def grad_fn(params, cfg: ModelConfig, batch: Dict, remat=False):
+    """``(grads, metrics)``: the gradient of ``loss_fn``'s total loss
+    with respect to every parameter (the parameters' tree and dtypes; a
+    parameter the loss does not reach gets zeros, as ``jax.grad``
+    gives), and its metrics, detached.  Products run in IEEE float32
+    (``device.ieee_float32``) and cuDNN deterministically
+    (``device.cudnn_deterministic``) through forward, recompute and
+    backward."""
+    with ieee_float32(), cudnn_deterministic():
+        work = tree_map(lambda t: t.detach().requires_grad_(), params)
+        leaves = []
+        tree_map(leaves.append, work)
+        total, metrics = loss_fn(work, cfg, batch, remat=remat)
+        got = torch.autograd.grad(total, leaves, allow_unused=True)
+    by_leaf = {id(w): g for w, g in zip(leaves, got)}
+    grads = tree_map(lambda w: torch.zeros_like(w) if by_leaf[id(w)] is None
+                     else by_leaf[id(w)], work)
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, schedule,
+                    remat: bool = True, donate: bool = False):
+    """``train_step(state, batch) -> (new state, metrics)``: ``grad_fn``,
+    the learning rate ``schedule(step)`` at the optimizer's step count
+    before the update, and ``adamw_update``.  The metrics are
+    ``loss_fn``'s plus ``grad_norm`` (before clipping) and ``lr``.  With
+    ``donate`` the new state is written into the given state's tensors,
+    as the reference's launcher donates its state to the jitted step."""
+    def train_step(state, batch):
+        grads, metrics = grad_fn(state["params"], cfg, batch, remat=remat)
+        lr = schedule(state["opt"]["step"])
+        params, opt, gnorm = adamw_update(state["params"], grads,
+                                          state["opt"], opt_cfg, lr,
+                                          donate=donate)
+        metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+        return {"params": params, "opt": opt}, metrics
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int | None = None):

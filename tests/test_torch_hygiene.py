@@ -3,9 +3,11 @@ neither JAX nor the reference package, its entry points never fall back
 to the CPU by themselves, and its kernel wrappers never send a non-CPU
 tensor to the plain version."""
 import ast
+import json
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -55,7 +57,9 @@ def test_serving_imports_with_jax_blocked():
             "repro_torch.models.moe, repro_torch.models.mamba, "
             "repro_torch.models.rwkv, "
             "repro_torch.configs, repro_torch.runtime, "
-            "repro_torch.runtime.steps, runpy; "
+            "repro_torch.runtime.steps, repro_torch.runtime.specs, "
+            "repro_torch.runtime.checkpoint, repro_torch.data, "
+            "repro_torch.optim, repro_torch.launch.train, runpy; "
             "[repro_torch.configs.get_config(a, preset='smoke') "
             "for a in repro_torch.configs.ARCH_IDS]; "
             "runpy.run_path(sys.argv[1]); "
@@ -213,10 +217,13 @@ def _stack(layers):
     ["serve", "--payload", "frames", "--cameras", "2", "--frames", "2",
      "--spmd"],
     ["serve", "--payload", "tokens", "--requests", "1", "--new-tokens", "1"],
-], ids=["daemon", "serve-frames", "serve-frames-spmd", "serve-tokens"])
+    ["train", "--steps", "1", "--batch", "1", "--seq", "8"],
+], ids=["daemon", "serve-frames", "serve-frames-spmd", "serve-tokens",
+        "train"])
 def test_launchers_default_to_cuda(monkeypatch, capsys, argv):
-    """``python -m repro_torch.launch.daemon`` and ``.serve`` run on
-    ``cuda`` unless given ``--device cpu``: without CUDA they raise."""
+    """``python -m repro_torch.launch.daemon``, ``.serve`` and ``.train``
+    run on ``cuda`` unless given ``--device cpu``: without CUDA they
+    raise."""
     import importlib
     mod = importlib.import_module(f"repro_torch.launch.{argv[0]}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -225,6 +232,16 @@ def test_launchers_default_to_cuda(monkeypatch, capsys, argv):
             mod.main(argv[1:] + extra)
     mod.main(argv[1:] + ["--device", "cpu"])
     assert capsys.readouterr().out
+
+
+def _restore_probe(**kw):
+    """The device ``restore_checkpoint`` puts a saved leaf on."""
+    from repro_torch.runtime.checkpoint import (restore_checkpoint,
+                                                save_checkpoint)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(Path(tmp) / "ck", {"w": torch.zeros(2)})
+        return restore_checkpoint(Path(tmp) / "ck", {"w": torch.ones(2)},
+                                  **kw)["w"].device
 
 
 def _entry_points():
@@ -238,7 +255,24 @@ def _entry_points():
     tree = {"backbone": [{"w": w, "b": w[0, 0, 0]}],
             "head8": {"w": w, "b": w[0, 0, 0]},
             "head16": {"w": w, "b": w[0, 0, 0]}}
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMBatchIterator, make_modality_batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import concrete_batch, train_state_init
+    from repro_torch.configs.base import InputShape
+    llm = get_config("minicpm-2b", preset="smoke")
+    audio = get_config("hubert-xlarge", preset="smoke")
     return {
+        "train_state_init": lambda **kw: train_state_init(
+            llm, torch.Generator().manual_seed(0), AdamWConfig(),
+            **kw)["opt"]["m"]["embed"]["table"].device,
+        "LMBatchIterator": lambda **kw: next(iter(LMBatchIterator(
+            llm, 1, 8, **kw)))["tokens"].device,
+        "make_modality_batch": lambda **kw: make_modality_batch(
+            audio, 1, 8, **kw)["features"].device,
+        "concrete_batch": lambda **kw: concrete_batch(
+            llm, InputShape("t", 8, 1, "train"), **kw)["tokens"].device,
+        "restore_checkpoint": _restore_probe,
         "TickPipeline": lambda **kw: TickPipeline(cfg, **kw).device,
         "TickPipeline(fused=True)": lambda **kw: TickPipeline(
             cfg, fused=True, **kw).device,
@@ -500,3 +534,39 @@ def test_library_names_track_shared_headers(monkeypatch, tmp_path):
     assert build.library_path("a") != before
     assert (build.CSRC / "a.cu").is_file()
     assert (REPO / "src/repro_torch/kernels/csrc/common.cuh").is_file()
+
+
+def test_train_launcher_prints_reference_lines(monkeypatch, capsys,
+                                               tmp_path):
+    """``python -m repro_torch.launch.train --device cpu --preset smoke
+    --steps 6 --checkpoint <tmp>`` prints the reference launcher's lines:
+    the same steps logged with the same learning rates, finite losses
+    and norms, the timing line and the round trip's line; the checkpoint
+    holds the step count and, outside the stages (per-layer lists here,
+    stacked in the reference), the reference's keys."""
+    import re
+    from repro.launch import train as jtrain
+    from repro_torch.launch import train as ttrain
+    from repro_torch.runtime.checkpoint import checkpoint_step
+    argv = ["--preset", "smoke", "--steps", "6"]
+    ttrain.main(argv + ["--device", "cpu", "--checkpoint",
+                        str(tmp_path / "port")])
+    got = capsys.readouterr().out.splitlines()
+    monkeypatch.setattr(sys, "argv", ["train"] + argv + [
+        "--checkpoint", str(tmp_path / "ref")])
+    jtrain.main()
+    want = capsys.readouterr().out.splitlines()
+    step = re.compile(r"step +(\d+) loss=(\S+) ce=(\S+) lr=(\S+) "
+                      r"gnorm=(\S+)$")
+    rows = [[step.match(line) for line in out[:-2]] for out in (got, want)]
+    assert all(rows[0]) and all(rows[1]) and len(rows[0]) == len(rows[1])
+    for g, w in zip(*rows):
+        assert g[1] == w[1] and g[4] == w[4]          # step, lr
+        assert all(np.isfinite(float(g[i])) for i in (2, 3, 5))
+    assert re.fullmatch(r"6 steps in \d+\.\ds \(\d+ tok/s\)", got[-2])
+    assert got[-1] == f"checkpoint round-trip OK -> {tmp_path / 'port'}"
+    assert checkpoint_step(tmp_path / "port") == 6
+    keys = [{k for k in json.loads((tmp_path / d / "manifest.json")
+                                   .read_text())["keys"]
+             if "['stages']" not in k} for d in ("port", "ref")]
+    assert keys[0] == keys[1] and "['opt']['step']" in keys[0]

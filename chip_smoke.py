@@ -227,7 +227,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    its gradients in 18); then ``launch.train --device cuda --preset
    smoke --steps 20 --checkpoint`` must print its round-trip line.  The
    eight kernels' launches are counted from zero over 17-20 and must all
-   be 0: the reference's training reaches no Pallas kernel.
+   be 0: the reference's training reaches no Pallas kernel;
+21. ``[mesh]``: ``launch.mesh.make_serving_mesh(1)`` is ``("cuda:0",)``,
+   one shard more than there are cards raises ``ValueError``, and
+   qwen3-4b's smoke decode logits inside ``mesh_context(
+   make_host_mesh())`` equal those outside it bit for bit;
+22. ``[dryrun-card]``: minicpm-2b whole at ``[llm-train]``'s batch of 2 x
+   2048 with remat: the cost model's FLOPs, counted on ``meta`` at cut
+   depths and extrapolated (``launch.dryrun.pair_cost``), equal
+   ``FlopCounterMode`` over one real step on the card exactly, and the
+   per-device argument bytes of a 1 x 1 host mesh equal the bytes of the
+   state and batch on the card exactly; the achieved TFLOP/s printed
+   (the counted FLOPs over ``[llm-train]``'s ms a step);
+23. ``[examples]``: ``examples/quickstart_torch.py``,
+   ``nvr_serving_torch.py``, ``sharded_serving_torch.py`` and
+   ``fault_tolerant_serving_torch.py`` through their ``main`` on
+   ``cuda`` (NMS and assignment launches counted from zero over the
+   four) and on ``cpu``: the reports they return equal, everything
+   discrete exactly, floats within rtol 1e-5 + atol 1e-4;
+24. ``[dryrun]`` (last): ``python -m repro_torch.launch.dryrun`` in three
+   processes started before ``[mesh]`` (they run on ``meta`` tensors and
+   see no card): ``--shape decode_32k --mesh both`` for every
+   architecture, and minicpm-2b at ``train_4k`` and ``prefill_32k`` on
+   the single mesh; every process exits 0, no record has ``error``,
+   hubert-xlarge's decode pairs are the reference's skip, every
+   architecture's ``n_params`` and the phase's wall time are printed.
 
 ``--profile`` adds one more serve of each path (the NVR serve staged and
 fused) under ``torch.profiler``
@@ -267,6 +291,7 @@ import gc
 import importlib.util
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -296,7 +321,8 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.daemon import (ServingDaemon, VirtualClock,  # noqa: E402,E501
                                        WallClock)
 from repro_torch.models import (LayerSpec, Stage,  # noqa: E402
-                                dense_stages, init_model, model_apply)
+                                dense_stages, init_model, model_apply,
+                                param_shapes)
 from repro_torch.models import attention as llm_attention  # noqa: E402
 from repro_torch.models import layers as llm_layers  # noqa: E402
 from repro_torch.models import mamba as llm_mamba  # noqa: E402
@@ -329,6 +355,12 @@ from repro_torch.serving import (DetectionEngine, EventBus,  # noqa: E402
                                  make_cascade_detect_fn, make_nvr_streams,
                                  make_skewed_streams, paper_catalog)
 from repro_torch.serving import pipeline as tpipe  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.cost import step_cost  # noqa: E402
+from repro_torch.launch import dryrun as launch_dryrun  # noqa: E402
+from repro_torch.launch.mesh import (make_host_mesh,  # noqa: E402
+                                     make_serving_mesh)
+from repro_torch.sharding import mesh_context  # noqa: E402
 from repro_torch import tracking as trk  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
@@ -524,6 +556,18 @@ PARAM_RTOL = 1e-5
 MOMENT_ATOL = 1e-7
 SMALL_GRAD = 1e-5
 CKPT_STEPS = (3, 3)             # steps before the save, steps after
+# [dryrun]: the dry run's CLI, one process each, all started together:
+# decode_32k of every architecture on both meshes, minicpm-2b's train_4k
+# and prefill_32k on the single mesh
+DRYRUN_RUNS = (("--shape", "decode_32k", "--mesh", "both"),
+               ("--arch", "minicpm-2b", "--shape", "train_4k"),
+               ("--arch", "minicpm-2b", "--shape", "prefill_32k"))
+DRYRUN_TIMEOUT_S = 600
+# [examples]: the four examples ported last, cuda against cpu; floats as
+# tests/test_torch_serving.py holds interpolated boxes and scores
+EXAMPLES = ("quickstart_torch.py", "nvr_serving_torch.py",
+            "sharded_serving_torch.py", "fault_tolerant_serving_torch.py")
+EXAMPLE_RTOL, EXAMPLE_ATOL = 1e-5, 1e-4
 # the reference's float32 kernel tolerance (tests/test_kernels.py), rtol =
 # atol, five times that for the RWKV state; a bfloat16 case is held to it
 # before its one final rounding (hold_to_plain)
@@ -1535,10 +1579,12 @@ def assert_same_report(a, b, what):
                               atol=1e-4), f"{what}: rid {ra.rid} {f}")
 
 
-def close_report(a, b, what, atol):
+def close_report(a, b, what, atol, rtol=0.0, nan_equal=False):
     """Recursive report comparison: floats (virtual clock, boxes,
-    scores, pixel tallies) within ``atol``, everything discrete (keys,
-    lengths, ints, bools, strings, class ids, track ids) exact."""
+    scores, pixel tallies) of ``a`` within ``atol`` + ``rtol`` times
+    those of ``b``, everything discrete (keys, lengths, ints, bools,
+    strings, class ids, track ids) exact.  With ``nan_equal`` a NaN
+    float must face a NaN (a field a run leaves undefined)."""
     def walk(x, y, path):
         if hasattr(x, "__dataclass_fields__"):
             x, y = vars(x), vars(y)
@@ -1555,13 +1601,21 @@ def close_report(a, b, what, atol):
             check(u.shape == v.shape and u.dtype == v.dtype,
                   f"{what}: {path} shape/dtype")
             if np.issubdtype(u.dtype, np.floating):
-                err = float(np.abs(u - v).max()) if u.size else 0.0
-                check(err <= atol, f"{what}: {path} differs by {err}")
+                if nan_equal:
+                    check(np.array_equal(np.isnan(u), np.isnan(v)),
+                          f"{what}: {path} NaN places differ")
+                    u, v = np.nan_to_num(u), np.nan_to_num(v)
+                excess = np.abs(u - v) - rtol * np.abs(v)
+                err = float(excess.max()) if u.size else 0.0
+                check(err <= atol, f"{what}: {path} differs by {err} "
+                      f"beyond rtol {rtol}")
             else:
                 check(np.array_equal(u, v), f"{what}: {path} "
                       f"{u.tolist()} != {v.tolist()}")
         elif isinstance(x, float):
-            check(abs(x - y) <= atol, f"{what}: {path} {x} != {y}")
+            check((nan_equal and x != x and y != y)
+                  or abs(x - y) <= atol + rtol * abs(y),
+                  f"{what}: {path} {x} != {y}")
         else:
             check(x == y, f"{what}: {path} {x!r} != {y!r}")
     walk(a, b, "report")
@@ -4098,6 +4152,199 @@ def phase_train_ckpt(deterministic):
           f"launch.train: {lines[-1]}")
 
 
+def start_dryrun(out_dir):
+    """Start ``DRYRUN_RUNS``, each ``python -m repro_torch.launch.dryrun
+    ... --out out_dir`` in a process of its own, all together (they run
+    on ``meta`` tensors and see no card).  Returns (processes, start
+    time)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for i, argv in enumerate(DRYRUN_RUNS):
+        log = open(Path(out_dir) / f"run{i}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--out", str(out_dir)], stdout=log, stderr=subprocess.STDOUT,
+            env=env, cwd=ROOT), log))
+    return procs, time.perf_counter()
+
+
+def phase_dryrun(procs, t0, out_dir):
+    """``[dryrun]``: wait for ``start_dryrun``'s processes (each must
+    exit 0 within ``DRYRUN_TIMEOUT_S``; the caller stops any left), then
+    read every record: none has ``error``, the
+    hubert-xlarge decode pairs are the reference's skip, every other
+    pair has a parameter count, per-device argument bytes and counted
+    FLOPs; each architecture's ``n_params`` and the phase's wall time
+    are printed."""
+    rcs = []
+    for proc, _ in procs:
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+        try:
+            rcs.append(proc.wait(timeout=max(left, 1)))
+        except subprocess.TimeoutExpired:
+            rcs.append("timeout")
+    wall = time.perf_counter() - t0
+    for i, rc in enumerate(rcs):
+        if rc != 0:
+            print((Path(out_dir) / f"run{i}.log").read_text()[-4000:])
+        check(rc == 0, f"dryrun {' '.join(DRYRUN_RUNS[i])}: exit {rc}")
+    recs = [json.loads(f.read_text())
+            for f in sorted(Path(out_dir).glob("*.json"))]
+    want = 2 * len(ARCH_IDS) + 2
+    check(len(recs) == want, f"dryrun: {len(recs)} records, not {want}")
+    n_params = {}
+    for r in recs:
+        what = f"dryrun {r['arch']} x {r['shape']} x {r['mesh']}"
+        check("error" not in r, f"{what}: {r.get('error')}")
+        if r["arch"] == "hubert-xlarge" and r["shape"] == "decode_32k":
+            check(r.get("skipped") and r["reason"] ==
+                  "encoder-only: no decode step", f"{what}: not skipped")
+            continue
+        check(not r.get("skipped"), f"{what}: skipped")
+        check(r["step_cost"]["flops"] > 0 and
+              r["memory"]["argument_size_in_bytes"] > 0, f"{what}: empty")
+        n_params[r["arch"]] = r["n_params"]
+        print(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh_name']}: "
+              f"{r['n_params']} parameters, "
+              f"{r['memory']['argument_size_in_bytes']} argument bytes a "
+              f"device, {r['step_cost']['flops']:.6e} FLOPs and "
+              f"{r['step_cost']['bytes']:.6e} bytes a step (global), "
+              f"count {r['timing']['count_s']:.1f} s")
+    check(set(n_params) == set(ARCH_IDS) - {"hubert-xlarge"},
+          f"dryrun: n_params for {sorted(n_params)}")
+    for arch in ARCH_IDS:     # hubert-xlarge's pairs here are skips
+        n = launch_dryrun.count_params(param_shapes(get_config(arch)))
+        check(n_params.get(arch, n) == n, f"dryrun: {arch} n_params")
+        print(f"[dryrun] n_params {arch}: {n}")
+    print(f"[dryrun] {len(recs)} records, 0 errors; wall {wall:.1f} s "
+          f"from the start of its {len(procs)} processes (they ran beside "
+          f"[mesh], [dryrun-card] and [examples])")
+
+
+def phase_dryrun_card(train_ms):
+    """``[dryrun-card]``: minicpm-2b whole at ``[llm-train]``'s batch
+    (``LLM_TRAIN_BATCH`` x ``LLM_TRAIN_SEQ``, remat): the cost model's
+    FLOPs, counted on ``meta`` at cut depths and extrapolated, must
+    equal ``FlopCounterMode`` over one real step on the card exactly,
+    and the per-device argument bytes of a 1 x 1 host mesh the bytes of
+    the state and batch on the card exactly.  Prints the achieved
+    TFLOP/s: the counted FLOPs over ``[llm-train]``'s ms a step."""
+    arch = LLM_TRAIN_ARCH
+    cfg = get_config(arch)
+    shape = InputShape("llm_train", LLM_TRAIN_SEQ, LLM_TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    meta = launch_dryrun.pair_cost(arch, cfg, shape)
+    t_meta = time.perf_counter() - t0
+    mesh = make_host_mesh()
+    check(mesh.sizes == (1, 1), f"host mesh {mesh}")
+    arg_bytes = launch_dryrun.argument_bytes(arch, cfg, shape, mesh)
+    free_cuda()
+    opt = launch_dryrun.opt_config(LLM_TRAIN_PARAMS)
+    state = train_state_init(cfg, torch.Generator(device=DEV).manual_seed(
+        SEED), opt, DEV)
+    batch = next(iter(LMBatchIterator(cfg, LLM_TRAIN_BATCH, LLM_TRAIN_SEQ,
+                                      device=DEV)))
+    held = sum(t.numel() * t.element_size()
+               for t in tree_leaves(state) + tree_leaves(batch))
+    step = make_train_step(cfg, opt, make_schedule(
+        "wsd", opt.peak_lr, LLM_TRAIN_STEPS), remat=True, donate=True)
+    t0 = time.perf_counter()
+    card = step_cost(step, state, batch)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    del state, batch
+    free_cuda()
+    print(f"[dryrun-card] {arch} whole, {LLM_TRAIN_BATCH} x "
+          f"{LLM_TRAIN_SEQ}, remat: FLOPs counted on meta at cut depths "
+          f"{meta['flops']} ({t_meta:.1f} s), over one step on the card "
+          f"{card['flops']} ({t_card:.1f} s); argument bytes of a 1 x 1 "
+          f"host mesh {arg_bytes}, on the card {held}")
+    check(meta["flops"] == card["flops"],
+          f"dryrun-card: meta FLOPs {meta['flops']} != card {card['flops']}")
+    check(arg_bytes == held,
+          f"dryrun-card: argument bytes {arg_bytes} != on the card {held}")
+    print(f"[dryrun-card] achieved {meta['flops'] / train_ms / 1e9:.2f} "
+          f"TFLOP/s: {meta['flops']} FLOPs over [llm-train]'s "
+          f"{train_ms:.3f} ms a step; {gpu_line()}")
+
+
+def phase_mesh():
+    """``[mesh]``: ``make_serving_mesh(1)`` is ``("cuda:0",)``, one more
+    shard than there are cards raises ``ValueError``, and qwen3-4b's
+    smoke decode logits inside ``mesh_context(make_host_mesh())`` equal
+    those outside it bit for bit."""
+    check(make_serving_mesh(1) == ("cuda:0",),
+          f"make_serving_mesh(1) = {make_serving_mesh(1)}")
+    n = torch.cuda.device_count()
+    try:
+        make_serving_mesh(n + 1)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, f"make_serving_mesh({n + 1}) did not raise")
+    cfg = get_config("qwen3-4b", "smoke")
+    params = init_model(cfg, torch.Generator(device=DEV).manual_seed(SEED),
+                        device=DEV)
+    step = make_decode_step(cfg)
+    prefill = make_prefill_step(cfg, cache_len=32)
+    toks = torch.arange(8, dtype=torch.int32, device=DEV)[None] + 3
+    _, cache = prefill(params, {"tokens": toks})
+    batch = {"tokens": toks[:, -1:], "cache": cache, "decode_pos": 8}
+    want, _ = step(params, batch)
+    mesh = make_host_mesh()
+    with mesh_context(mesh):
+        got, _ = step(params, batch)
+    check(torch.equal(got, want), "[mesh] logits differ inside the mesh")
+    print(f"[mesh] make_serving_mesh(1) = ('cuda:0',); "
+          f"make_serving_mesh({n + 1}) raises ValueError; qwen3-4b smoke "
+          f"decode logits {tuple(got.shape)} bit-equal inside "
+          f"mesh_context({mesh.axis_names} {mesh.sizes}) and outside")
+
+
+def run_quietly(main, argv):
+    """``main(argv)`` with its standard output captured; returns what
+    ``main`` returns."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def load_by_path(path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples():
+    """``[examples]``: each of ``EXAMPLES`` through its ``main`` on
+    ``cuda`` (launches counted from zero over the four) and on ``cpu``:
+    the reports it returns equal, discrete fields exactly (reports,
+    drops, track ids, coverage, restarts), floats within
+    ``EXAMPLE_RTOL`` + ``EXAMPLE_ATOL``.  Returns the launch counts."""
+    mods = {name: load_by_path(ROOT / "examples" / name)
+            for name in EXAMPLES}
+    got, ms = {}, {}
+    ops.reset_launches()
+    for name, mod in mods.items():
+        t0 = time.perf_counter()
+        got[name] = run_quietly(mod.main, ["--device", DEV])
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    for name, mod in mods.items():
+        want = run_quietly(mod.main, ["--device", "cpu"])
+        close_report(got[name], want, f"[examples] {name}", EXAMPLE_ATOL,
+                     EXAMPLE_RTOL, nan_equal=True)
+        print(f"[examples] {name}: cuda == cpu ({ms[name]:.0f} ms host "
+              f"wall on cuda)")
+    print(f"[examples] launches over the four on cuda: {launches}")
+    check(launches["batched_nms"] > 0 and launches["greedy_assign"] > 0,
+          f"[examples] NMS or assignment never launched: {launches}")
+    return launches
+
+
 def tf32_settings():
     """The legacy TF32 flags and, where this torch has them, the
     per-operation float32 precisions, as strings (a legacy flag that
@@ -4181,7 +4428,7 @@ def main() -> int:
             by_path["rwkv_model"] = launches
     phase_families_smoke_f32()
     ops.reset_launches()
-    phase_llm_train(profile="--profile" in sys.argv[1:])
+    train = phase_llm_train(profile="--profile" in sys.argv[1:])
     deterministic = phase_llm_train_f32()
     phase_train_smoke()
     phase_train_ckpt(deterministic)
@@ -4189,6 +4436,19 @@ def main() -> int:
     by_path["training"] = ops.launches()
     check(not any(by_path["training"].values()),
           f"the training phases launched a kernel: {by_path['training']}")
+    with tempfile.TemporaryDirectory() as dry_dir:
+        procs, t_dry = start_dryrun(dry_dir)
+        try:
+            phase_mesh()
+            phase_dryrun_card(train["ms"])
+            by_path["examples"] = phase_examples()
+            phase_dryrun(procs, t_dry, dry_dir)
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
     for k, e in entries.items():
         e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

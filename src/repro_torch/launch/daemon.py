@@ -4,7 +4,8 @@
 The batch launchers (``launch/serve.py``) hand a full frame trace to
 ``eng.serve(frames)`` and wait.  The daemon is the long-lived shape of
 the same computation: frames are ingested as they *arrive* on a
-pluggable clock, the runtime advances its virtual time to the clock,
+pluggable clock, the runtime advances its virtual time to the clock
+(never past a frame not yet ingested, however far the clock ran ahead),
 per-epoch rolling reports stay available mid-run, and every trace
 event streams to subscribers (JSONL on disk, counters, …) the moment
 it is recorded.  On shutdown the runtime drains in-flight frames and
@@ -116,17 +117,22 @@ class ServingDaemon:
                 break
             if pending and (len(pending) >= self.chunk
                             and f.t_arrival != pending[-1].t_arrival):
-                self._flush(pending)
+                self._flush(pending, f.t_arrival)
                 pending = []
             pending.append(f)
         if pending and not self._stop:
             self._flush(pending)
         return self.shutdown()
 
-    def _flush(self, chunk):
+    def _flush(self, chunk, next_arrival=float("inf")):
+        """Ingest ``chunk`` at its arrival time and advance the runtime
+        to the clock, but never past ``next_arrival``, the arrival of the
+        first frame not yet ingested: a clock that ran ahead of the trace
+        (a slow host on the ``WallClock``) must not seal a micro-batch
+        without frames that arrived meanwhile."""
         self.clock.sleep_until(chunk[-1].t_arrival)
         self.runtime.ingest(chunk)
-        self.runtime.advance(self.clock.now())
+        self.runtime.advance(min(self.clock.now(), next_arrival))
         self.frames_ingested += len(chunk)
 
     def shutdown(self) -> dict:

@@ -7,9 +7,8 @@ the reference's lines.
       --steps 20
 
 Everything runs on ``--device`` (default ``cuda``, raising where no CUDA
-device exists; ``--device cpu`` runs on the CPU).  The reference's
-``--dry-run`` lowering of the full configs over a mesh belongs to its
-XLA-only modules and is not ported.
+device exists; ``--device cpu`` runs on the CPU).  The sweep of the
+full configs over the production meshes is ``launch.dryrun``.
 """
 from __future__ import annotations
 

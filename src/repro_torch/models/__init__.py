@@ -6,11 +6,12 @@ its building blocks, mirroring the reference package's ``models``."""
 from .config import (LayerSpec, MLAConfig, MambaConfig, ModelConfig,
                      MoEConfig, RWKVConfig, Stage, dense_stages)
 from .transformer import (init_cache, init_model, logits_fn, model_apply,
-                          params_from_numpy, train_state_from_numpy)
+                          param_shapes, params_from_numpy,
+                          train_state_from_numpy)
 
 __all__ = [
     "LayerSpec", "MLAConfig", "MambaConfig", "ModelConfig", "MoEConfig",
     "RWKVConfig", "Stage", "dense_stages", "init_cache", "init_model",
-    "logits_fn", "model_apply", "params_from_numpy",
+    "logits_fn", "model_apply", "param_shapes", "params_from_numpy",
     "train_state_from_numpy",
 ]

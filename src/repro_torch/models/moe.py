@@ -19,12 +19,14 @@ Three parts decide which tokens are dropped and are exact against the
 reference: ``capacity``, ``route``'s ``idx`` (``jax.lax.top_k`` puts the
 lower index first on ties: here a stable descending sort) and
 ``_dispatch_tables`` (a stable argsort; the overflow slot ``E*C`` is
-never written, where the reference writes it many times and cuts it
-off).  The combine adds each token's expert outputs in ascending expert
-order, in the activation dtype, one addition after another: a fixed
-order on every device, where the reference's scatter-add leaves it to
-XLA and ``index_add_`` on CUDA adds in an order that may change between
-runs, so two bf16 decodes on the card are bit-equal.
+written many times and cut off, as in the reference).  Every operation
+of the dispatch has a ``meta`` kernel: no boolean indexing, and the
+expert counts by ``scatter_add_``, not ``bincount``.  The combine adds
+each token's expert outputs in ascending expert order, in the activation
+dtype, one addition after another: a fixed order on every device, where
+the reference's scatter-add leaves it to XLA and ``index_add_`` on CUDA
+adds in an order that may change between runs, so two bf16 decodes on
+the card are bit-equal.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding.context import constrain
 from . import layers
 from .config import ModelConfig, MoEConfig
 
@@ -59,6 +62,8 @@ def _stack_init(generator, E, d_in, d_out, dt):
     """(E, d_in, d_out) expert weights, drawn one expert at a time, so
     the float32 draw of a whole stack is never live."""
     out = torch.empty((E, d_in, d_out), dtype=dt, device=generator.device)
+    if out.is_meta:                 # a shape-only build draws nothing
+        return out
     for e in range(E):
         out[e] = layers.dense_init(generator, d_in, d_out, dt)
     return out
@@ -95,7 +100,7 @@ def route(x_flat, router_w, m: MoEConfig):
         probs = scores / torch.clamp(scores.sum(-1, keepdim=True), min=1e-9)
     # load-balance aux (Switch-style): E * sum_i f_i * P_i
     T = x_flat.shape[0]
-    f = torch.bincount(idx.reshape(-1), minlength=m.n_experts).float()
+    f = expert_counts(idx, m.n_experts).float()
     f = f / (T * m.top_k)
     P = probs.mean(dim=0)
     lb = m.n_experts * torch.sum(f * P)
@@ -105,25 +110,37 @@ def route(x_flat, router_w, m: MoEConfig):
     return w, idx, aux
 
 
+def expert_counts(idx, E: int):
+    """How many entries of ``idx`` name each of the ``E`` experts, as
+    ``torch.bincount(idx.reshape(-1), minlength=E)`` counts them (int64),
+    by an integer ``scatter_add_``, which also runs on ``meta`` tensors
+    (``bincount`` has no meta kernel)."""
+    flat = idx.reshape(-1).long()
+    return torch.zeros(E, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def _dispatch_tables(w, idx, T: int, E: int, k: int, C: int):
     """Sort-based dispatch tables: slot -> (token id, combine weight), and
     the slot of each (token, choice) pair of ``idx`` (T, k), ``E*C`` where
     the pair overflows its expert's C slots (a dropped pair).  Empty slots
-    hold token 0 and weight 0; an overflowing pair is written nowhere."""
+    hold token 0 and weight 0; an overflowing pair is written nowhere
+    that is kept."""
     e_flat = idx.reshape(-1)                              # (T*k,)
     order = torch.argsort(e_flat, stable=True)            # group by expert
     e_sorted = e_flat[order]
-    counts = torch.bincount(e_flat, minlength=E)
+    counts = expert_counts(e_flat, E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=idx.device) - starts[e_sorted]
     valid = pos < C
     dest = torch.where(valid, e_sorted * C + pos,
                        torch.full_like(pos, E * C))       # overflow slot
     tok_of = torch.div(order, k, rounding_mode="floor")
-    slot_tok = torch.zeros(E * C, dtype=torch.int64, device=w.device)
-    slot_w = torch.zeros(E * C, dtype=torch.float32, device=w.device)
-    slot_tok[dest[valid]] = tok_of[valid]
-    slot_w[dest[valid]] = w.reshape(-1)[order][valid].float()
+    # every overflowing pair lands in the extra slot E*C, cut off after
+    slot_tok = torch.zeros(E * C + 1, dtype=torch.int64, device=w.device)
+    slot_w = torch.zeros(E * C + 1, dtype=torch.float32, device=w.device)
+    slot_tok = slot_tok.scatter_(0, dest, tok_of)[:E * C]
+    slot_w = slot_w.scatter_(0, dest, w.reshape(-1)[order].float())[:E * C]
     pair_slot = torch.empty_like(dest)
     pair_slot[order] = dest
     return slot_tok, slot_w, pair_slot.reshape(T, k)
@@ -163,11 +180,13 @@ def apply_moe(p, cfg: ModelConfig, x):
     m = cfg.moe
     B, S, d = x.shape
     if m.dispatch == "batched":
+        x = constrain(x, "batch", None, None)
         C = capacity(S, m)
         rows = [_moe_flat(p, m, x[b], C) for b in range(B)]
         out = torch.stack([r[0] for r in rows])
         aux = {key: torch.stack([r[1][key] for r in rows]).mean()
                for key in rows[0][1]}
+        out = constrain(out, "batch", None, None)
     else:
         T = B * S
         out, aux = _moe_flat(p, m, x.reshape(T, d), capacity(T, m))

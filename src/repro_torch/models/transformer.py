@@ -9,9 +9,9 @@ and DeepSeek's multi-token-prediction head.  The reference runs each
 stage under ``jax.lax.scan`` over stacked period parameters; the port
 runs the layers one by one in Python, over a flat list of per-layer
 parameter dicts in execution order (``params["stages"][i]["layers"]``,
-and likewise ``cache[i]["caches"]``).  The reference's sharding
-constraints have no counterpart here (the XLA sharding modules are
-``ROADMAP.md`` section 1, item 3).
+and likewise ``cache[i]["caches"]``).  Activations carry the
+reference's sharding constraints (``sharding.context.constrain``): the
+identity off a mesh, a resolved spec on one.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import ieee_float32, params_to, resolve_device
+from ..sharding.context import constrain
 from . import attention, layers, mamba, moe, rwkv
 from .config import LayerSpec, ModelConfig
 
@@ -86,6 +87,7 @@ def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, h, positions,
         y, mc = rwkv.apply_rwkv(p["mixer"], cfg, h_norm, mode=mode,
                                 cache=cache.get("mixer"))
     h = h + y
+    h = constrain(h, "batch", "seq", None)
 
     aux = dict(ZERO_AUX)
     fc: Any = {}
@@ -101,6 +103,7 @@ def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, h, positions,
                                          cache=cache.get("ffn"))
             fc = fc or {}
         h = h + f
+        h = constrain(h, "batch", "seq", None)
     new_cache = {"mixer": mc if mc is not None else {}, "ffn": fc}
     return h, new_cache, aux
 
@@ -139,6 +142,25 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
             "final_norm": layers.init_rms_norm(cfg.d_model, dt, dev),
         }
     return params_to(p, device)
+
+
+class _ShapeOnly(torch.Generator):
+    """A generator whose device is ``meta``: every draw of ``init_model``
+    lands on a ``meta`` tensor, which has a shape and a dtype and no
+    data, so nothing is drawn or allocated."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig):
+    """``init_model``'s parameter tree as ``meta`` tensors (the
+    counterpart of the reference's ``jax.eval_shape(init_model)``): every
+    leaf's shape and dtype, no data, so a 671B configuration builds in
+    host memory.  ``init_model``'s draws for any real device are
+    unchanged."""
+    return init_model(cfg, _ShapeOnly(), device="meta")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -265,6 +287,7 @@ def model_apply(p, cfg: ModelConfig, batch_in: Dict[str, Any],
     disabled ``remat`` changes nothing."""
     h = _embed_inputs(p, cfg, batch_in)
     B, S, _ = h.shape
+    h = constrain(h, "batch", "seq", None)
     if mode == "decode":
         positions = torch.full((B, 1), int(decode_pos), dtype=torch.int64,
                                device=h.device)
@@ -291,6 +314,7 @@ def model_apply(p, cfg: ModelConfig, batch_in: Dict[str, Any],
         aux_tot = {k: aux_tot[k] + aux_stage[k] for k in aux_tot}
 
     logits = logits_fn(p, cfg, h)
+    logits = constrain(logits, "batch", "seq", "tensor")
     if cfg.mtp and mode == "train":
         aux_tot["mtp_logits"] = _mtp_logits(p, cfg, h, batch_in, positions)
     return logits, (new_caches if cache is not None else None), aux_tot

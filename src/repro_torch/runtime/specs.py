@@ -1,8 +1,8 @@
-"""Concrete batches for smoke tests and examples (the port of the
-reference package's ``runtime/specs.py``: ``make_positions`` and
-``concrete_batch``, with the reference's numpy draws).  The reference's
-``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins for its dry run)
-waits for the XLA-only modules, ``ROADMAP.md`` section 1, item 3."""
+"""Input specs and concrete batches for every (architecture x input
+shape) pair (the port of the reference package's ``runtime/specs.py``):
+``input_specs`` gives ``meta`` tensors for the dry run (the reference's
+``jax.ShapeDtypeStruct`` stand-ins), ``concrete_batch`` small batches
+for smoke tests and examples with the reference's numpy draws."""
 from __future__ import annotations
 
 from typing import Dict
@@ -53,6 +53,26 @@ def _prefill_tree(cfg: ModelConfig, B, S, make):
     else:
         tree["tokens"] = make((B, S), torch.int32)
     return tree
+
+
+def input_specs(cfg: ModelConfig, shape: str | InputShape):
+    """The step's inputs as ``meta`` tensors (shapes and dtypes, no
+    data): the train and prefill batches, and for decode one new token,
+    a cache of S positions (``init_cache(..., device="meta")``) and a
+    0-d int32 ``decode_pos``."""
+    sh = SHAPES[shape] if isinstance(shape, str) else shape
+    B, S = sh.global_batch, sh.seq_len
+    make = lambda s, d: torch.empty(s, dtype=d, device="meta")
+    if sh.kind == "train":
+        return _train_tree(cfg, B, S, make)
+    if sh.kind == "prefill":
+        return _prefill_tree(cfg, B, S, make)
+    # decode: one new token against a cache of S positions
+    return {
+        "tokens": make((B, 1), torch.int32),
+        "cache": init_cache(cfg, B, S, device="meta"),
+        "decode_pos": make((), torch.int32),
+    }
 
 
 def concrete_batch(cfg: ModelConfig, shape: str | InputShape, seed=0,

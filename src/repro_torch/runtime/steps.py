@@ -3,10 +3,9 @@ package's ``runtime/steps.py``).  The reference jits each step; here
 each is a plain function that runs eagerly on the device of its inputs.
 
 A train state is the reference's tree, ``{"params": ..., "opt": {"m",
-"v", "step"}}``, of tensors.  The reference's train step passes its
-gradients through ``sharding.rules.constrain_like_params``, which
-returns its input when no mesh is active; the port runs on one device,
-so the step leaves it out.
+"v", "step"}}``, of tensors.  The train step passes its gradients
+through ``sharding.rules.constrain_like_params``, as the reference's
+does.
 """
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ from ..models.config import ModelConfig
 from ..models.layers import cross_entropy
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..optim.adamw import tree_map
+from ..sharding.rules import constrain_like_params
 
 
 @dataclass
@@ -96,6 +96,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, schedule,
     as the reference's launcher donates its state to the jitted step."""
     def train_step(state, batch):
         grads, metrics = grad_fn(state["params"], cfg, batch, remat=remat)
+        grads = constrain_like_params(grads)
         lr = schedule(state["opt"]["step"])
         params, opt, gnorm = adamw_update(state["params"], grads,
                                           state["opt"], opt_cfg, lr,

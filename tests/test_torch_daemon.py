@@ -139,6 +139,29 @@ def test_daemon_virtual_clock_matches_batch_and_reference(chunk):
     assert out["port"]["migrations"] == out["ref"]["migrations"]
 
 
+class _BehindClock:
+    """A clock far ahead of the trace, as a ``WallClock`` reads on a host
+    that fell behind it: it never sleeps, and ``now()`` is past every
+    arrival."""
+
+    def now(self):
+        return 1e6
+
+    def sleep_until(self, t):
+        pass
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_daemon_behind_the_clock_matches_batch(chunk):
+    """A daemon whose clock ran ahead still serves the batch report: it
+    never advances past a frame it has not ingested."""
+    frames, kw = _sharded(TPKG)
+    daemon = ServingDaemon(ServingRuntime(TSharded(**kw), streams=range(4)),
+                           clock=_BehindClock(), chunk=chunk)
+    out = daemon.run(frames)
+    assert_reports_identical(TSharded(**kw).serve(frames), out)
+
+
 def test_daemon_audits_clean_with_the_bus():
     bus = EventBus()
     rec = bus.recorder()

@@ -20,7 +20,14 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "check_trace_torch.py",
     REPO / "examples" / "video_analytics_torch.py",
-    REPO / "examples" / "llm_serving_torch.py"]
+    REPO / "examples" / "llm_serving_torch.py",
+    REPO / "examples" / "quickstart_torch.py",
+    REPO / "examples" / "nvr_serving_torch.py",
+    REPO / "examples" / "sharded_serving_torch.py",
+    REPO / "examples" / "fault_tolerant_serving_torch.py"]
+NEW_EXAMPLES = ["quickstart_torch.py", "nvr_serving_torch.py",
+                "sharded_serving_torch.py",
+                "fault_tolerant_serving_torch.py"]
 
 
 def _imported_modules(path):
@@ -59,7 +66,10 @@ def test_serving_imports_with_jax_blocked():
             "repro_torch.configs, repro_torch.runtime, "
             "repro_torch.runtime.steps, repro_torch.runtime.specs, "
             "repro_torch.runtime.checkpoint, repro_torch.data, "
-            "repro_torch.optim, repro_torch.launch.train, runpy; "
+            "repro_torch.optim, repro_torch.launch.train, "
+            "repro_torch.sharding.context, repro_torch.sharding.rules, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.cost, runpy; "
             "[repro_torch.configs.get_config(a, preset='smoke') "
             "for a in repro_torch.configs.ARCH_IDS]; "
             "runpy.run_path(sys.argv[1]); "
@@ -262,7 +272,14 @@ def _entry_points():
     from repro_torch.configs.base import InputShape
     llm = get_config("minicpm-2b", preset="smoke")
     audio = get_config("hubert-xlarge", preset="smoke")
+    from repro_torch.launch.mesh import (make_host_mesh, make_replica_mesh,
+                                         make_serving_mesh)
     return {
+        "make_host_mesh": lambda **kw: make_host_mesh(**kw).devices[0],
+        "make_replica_mesh": lambda **kw: make_replica_mesh(
+            1, **kw).devices[0],
+        "make_serving_mesh": lambda **kw: torch.device(
+            make_serving_mesh(1, **kw)[0]),
         "train_state_init": lambda **kw: train_state_init(
             llm, torch.Generator().manual_seed(0), AdamWConfig(),
             **kw)["opt"]["m"]["embed"]["table"].device,
@@ -300,6 +317,21 @@ def test_entry_points_default_to_cuda(monkeypatch, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
     assert make(device="cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("name", NEW_EXAMPLES)
+def test_examples_default_to_cuda(monkeypatch, capsys, name):
+    """The four examples ported last run on ``cuda`` unless given
+    ``--device cpu``: without CUDA they raise."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "examples" / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(extra)
 
 
 def _nms_args(device):

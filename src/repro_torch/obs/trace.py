@@ -52,10 +52,100 @@ The DEFAULT recorder everywhere is ``NULL_RECORDER`` — a no-op whose
 ``enabled`` flag lets hot paths skip event construction entirely, so an
 engine built without a recorder is bit-identical (same virtual clocks,
 same report) to one that predates tracing.
+
+Wall-clock spans live apart from the events and never enter them
+(``docs/OBSERVABILITY.md``, "Wall-clock spans").  While a
+``torch.profiler`` is active, ``span(name)`` (or a method decorated
+with ``spanned(name)``) opens the host range ``repro.<name>`` on the
+profiler's own clock, ``Timed(name)`` does the same around the wall of
+a stage that the program reads, and every garbage collection is a
+``repro.gc`` range.  The ranges are host operations, not user
+annotations, so the profiler puts no mirror of them on the device's
+timeline.  With no profiler a span opens nothing.
 """
 from __future__ import annotations
 
+import functools
+import gc
+from contextlib import nullcontext
+from time import perf_counter
 from typing import Dict, List, Tuple
+
+import torch
+from torch._C._autograd import _profiler_enabled
+
+#: the profiler's host range with no device mirror (a ``record_function``
+#: opens a user annotation, which the profiler mirrors on the device)
+_range = torch._C._profiler._RecordFunctionFast
+_NO_RANGE = nullcontext()
+
+
+def span(name: str):
+    """Context manager: the range ``repro.<name>`` while a profiler is
+    active, else one shared no-op context."""
+    if _profiler_enabled():
+        return _range("repro." + name)
+    return _NO_RANGE
+
+
+def spanned(name: str):
+    """Decorator: each call of the method runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+class Timed:
+    """The wall of one stage: ``perf_counter`` read at construction and
+    once more by ``stop()``, which returns the seconds between.  The
+    range ``repro.<name>`` is open around both readings while a profiler
+    is active.
+
+    >>> wall = Timed("detect")
+    >>> wall.stop() >= 0.0
+    True
+    """
+
+    __slots__ = ("_twin", "_t0")
+
+    def __init__(self, name: str):
+        self._twin = None
+        if _profiler_enabled():
+            self._twin = _range("repro." + name)
+            self._twin.__enter__()
+        self._t0 = perf_counter()
+
+    def stop(self) -> float:
+        wall = perf_counter() - self._t0
+        if self._twin is not None:
+            self._twin.__exit__(None, None, None)
+            self._twin = None
+        return wall
+
+
+class _GcRange:
+    """``gc.callbacks`` hook, installed when this module is imported:
+    each collection made while a profiler is active is a ``repro.gc``
+    range.  Otherwise it returns at once."""
+
+    def __init__(self):
+        self._twin = None
+
+    def __call__(self, phase: str, info: dict):
+        if phase == "start":
+            if _profiler_enabled():
+                self._twin = _range("repro.gc")
+                self._twin.__enter__()
+        elif self._twin is not None:
+            twin, self._twin = self._twin, None
+            twin.__exit__(None, None, None)
+
+
+gc.callbacks.append(_GcRange())
 
 
 class TraceRecorder:

@@ -41,7 +41,7 @@ from ..device import resolve_device
 from ..models import init_model
 from ..models.config import ModelConfig
 from ..obs.metrics import detection_latency_keys
-from ..obs.trace import NULL_RECORDER
+from ..obs.trace import NULL_RECORDER, Timed, span
 from ..runtime.steps import make_decode_step, make_prefill_step
 from .pipeline import TickPipeline, bucket, chunk_size, confirmed_ids
 
@@ -224,21 +224,29 @@ class ServingEngine:
     # ------------------------------------------------------------- compute
     @torch.no_grad()
     def _generate(self, req: Request) -> tuple[np.ndarray, float]:
+        """Prefill, then greedy decode.  The spans split the host's time:
+        ``llm.prefill`` and each ``llm.decode`` enqueue their step and
+        its argmax (no synchronize), ``llm.read`` is each blocking read
+        of a token and the final synchronize."""
         t0 = time.perf_counter()
-        toks = torch.as_tensor(np.asarray(req.tokens, np.int64),
-                               device=self.device)[None]
-        logits, cache = self.prefill(self.params, {"tokens": toks})
+        with span("llm.prefill"):
+            toks = torch.as_tensor(np.asarray(req.tokens, np.int64),
+                                   device=self.device)[None]
+            logits, cache = self.prefill(self.params, {"tokens": toks})
+            nxt = torch.argmax(logits, -1)[:, None]
         out = []
         pos = toks.shape[1]
-        nxt = torch.argmax(logits, -1)[:, None]
         for _ in range(req.max_new_tokens):
-            out.append(int(nxt[0, 0]))
-            logits, cache = self.decode(self.params, {
-                "tokens": nxt, "cache": cache, "decode_pos": pos})
-            nxt = torch.argmax(logits, -1)[:, None]
+            with span("llm.read"):
+                out.append(int(nxt[0, 0]))
+            with span("llm.decode"):
+                logits, cache = self.decode(self.params, {
+                    "tokens": nxt, "cache": cache, "decode_pos": pos})
+                nxt = torch.argmax(logits, -1)[:, None]
             pos += 1
         if self.device.type == "cuda":    # the wall covers the device work
-            torch.cuda.synchronize(self.device)
+            with span("llm.read"):
+                torch.cuda.synchronize(self.device)
         return np.array(out, np.int32), time.perf_counter() - t0
 
     def warmup(self, prompt_len: int = 16):
@@ -475,10 +483,11 @@ class DetectionEngine:
     def _detect_batch(self, images: np.ndarray, rids=None, model=None,
                       rois=None):
         """One fused launch for a full micro-batch; returns numpy
-        results + measured wall seconds.  The clock is read after the
-        device has finished.  ``model``/``rois`` are the cascade hooks,
-        forwarded only to detect_fns that declare them."""
-        t0 = time.perf_counter()
+        results + measured wall seconds (the ``detect`` span's).  The
+        clock is read after the device has finished.  ``model``/``rois``
+        are the cascade hooks, forwarded only to detect_fns that
+        declare them."""
+        wall = Timed("detect")
         if self._detect_fn is not None:
             kw = {}
             if model is not None and self._fn_takes_model:
@@ -492,7 +501,7 @@ class DetectionEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             out = tuple(o.cpu().numpy() for o in out)
-        return tuple(np.asarray(o) for o in out), time.perf_counter() - t0
+        return tuple(np.asarray(o) for o in out), wall.stop()
 
     def _model_caps(self) -> Dict[str, float]:
         """Summed healthy-pool service rate (frames/s) per model name,
@@ -616,7 +625,9 @@ class DetectionEngine:
         ``interpolated``, ready no earlier than the newest detection of
         the SAME stream.  ``tracks0`` seeds streams from carried
         portable rows; the final table is exported per stream into
-        ``self._exported_tracks``."""
+        ``self._exported_tracks``.  The ``track`` span times the ticks
+        and the export (``stage_ms_track``), a ``track.tick`` span each
+        pipeline call."""
         rec = NULL_RECORDER if rec is None else rec
         cfg = self.tracker_cfg
         per: Dict[int, List[FrameRequest]] = {}
@@ -639,7 +650,7 @@ class DetectionEngine:
         D = responses[0].boxes.shape[0] if responses else 1
         emit_t = {s: emit0.get(s, 0.0) for s in sids}
         ticks = max(len(v) for v in per.values())
-        wall0 = time.perf_counter()
+        wall = Timed("track")
         out: List[DetectionResponse] = []
         for k in range(ticks):
             tick = [(s, per[s][k] if k < len(per[s]) else None)
@@ -657,10 +668,12 @@ class DetectionEngine:
                         b = row[s]
                         boxes[b], scores[b] = r.boxes, r.scores
                         classes[b], valid[b] = r.classes, r.valid
-                state, det_tid, fout = pipe.tick(state, boxes, scores,
-                                                 classes, valid)
+                with span("track.tick"):
+                    state, det_tid, fout = pipe.tick(state, boxes, scores,
+                                                     classes, valid)
             else:                           # no stream saw a detection
-                state, fout = pipe.coast(state, det_width=D)
+                with span("track.tick"):
+                    state, fout = pipe.coast(state, det_width=D)
             # fused mode returns the tick's output with it; the staged
             # chain materializes it lazily, only if a drop needs it
             coasted = fout
@@ -693,6 +706,7 @@ class DetectionEngine:
                            tids=confirmed_ids(rowd, cfg))
             rec.record("stage", frames[-1].t_arrival, stage="track",
                        launches=pipe.launches, ticks=ticks)
-            rec.sample("stage_ms_track", frames[-1].t_arrival,
-                       (time.perf_counter() - wall0) * 1e3)
+        track_ms = wall.stop() * 1e3
+        if rec.enabled:
+            rec.sample("stage_ms_track", frames[-1].t_arrival, track_ms)
         return out

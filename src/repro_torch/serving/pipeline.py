@@ -42,7 +42,6 @@ set), which is what lets fused mode run one graph every tick.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -50,6 +49,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..obs.trace import Timed
 
 
 # --------------------------------------------------------------- chunking
@@ -465,9 +465,9 @@ def roi_second_pass(eng, tick: TickState, kept, pad_b: int, rec):
     heavy model answers only inside them, and its detections REPLACE
     the first pass's fields in the returned ``TickState``.  Also
     returns the fraction of full-frame pixels the second pass read, its
-    measured wall seconds, and the pixel tallies ``{"full", "roi",
-    "passes"}`` for the caller's accounting (the stage itself mutates
-    nothing).
+    measured wall seconds (the ``roi`` span's), and the pixel tallies
+    ``{"full", "roi", "passes"}`` for the caller's accounting (the stage
+    itself mutates nothing).
 
     The crop always runs through ``kernels.ops.crop_resize`` on the
     engine's device (the CUDA kernel on the card).  With the built-in
@@ -496,7 +496,7 @@ def roi_second_pass(eng, tick: TickState, kept, pad_b: int, rec):
         px[j] = roi_pixels(rois[j], int(n_rois[j]), (W, H))
     px_full = float(n) * W * H
     px_roi = float(px.sum())
-    t0 = time.perf_counter()
+    wall = Timed("roi")
     dev = eng.device
     C = eng.roi_crop or images.shape[1]
     norm = rois / np.array([W, H, W, H], np.float32)
@@ -549,7 +549,7 @@ def roi_second_pass(eng, tick: TickState, kept, pad_b: int, rec):
             scores[j, :len(keep)] = fs[keep]
             classes[j, :len(keep)] = cc[j].reshape(-1)[keep]
             valid[j, :len(keep)] = True
-    roi_wall = time.perf_counter() - t0
+    roi_wall = wall.stop()
     if rec.enabled:
         for j, f in enumerate(kept):
             v = np.asarray(valid[j], bool)

@@ -53,7 +53,7 @@ import numpy as np
 
 from ..core.synchronizer import SequenceSynchronizer
 from ..obs.metrics import detection_latency_keys
-from ..obs.trace import NULL_RECORDER
+from ..obs.trace import NULL_RECORDER, spanned
 from ..sharding.serving_rules import rebalance_streams, shard_streams
 from .engine import (DetectionEngine, DetectionResponse, FrameRequest,
                      _per_replica_counts)
@@ -108,6 +108,7 @@ class _DetectionCore:
         self._roi_px = {"full": 0.0, "roi": 0.0, "passes": 0}
 
     # ------------------------------------------------------------ ingest
+    @spanned("runtime.ingest")
     def ingest(self, frames):
         chunk = _sorted_chunk(frames)
         if not chunk:
@@ -147,6 +148,7 @@ class _DetectionCore:
         while self._sealed(to_t):
             self._process_next_batch()
 
+    @spanned("runtime.batch")
     def _process_next_batch(self):
         eng = self.eng
         frames = self._queue
@@ -373,6 +375,7 @@ class _DetectionCore:
         }
 
     # -------------------------------------------------------- boundaries
+    @spanned("runtime.epoch")
     def epoch_boundary(self) -> Dict:
         """Flush the open segment, close it into a per-epoch report, and
         start a new segment with the seq / emit floors (and, with

@@ -178,7 +178,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    and peak memory; ``[llm]``'s workload through ``ServingEngine`` (req/s
    on the virtual clock, ms a prefill and a decode token by CUDA
    events); the (token, expert) pairs the served prefills dropped at the
-   published capacity factor (a one-token decode must drop none); decode
+   published capacity factor (a one-token decode must drop none: the
+   served requests decoded again eagerly, whose tokens must equal the
+   graphed serve's, log one dispatch an MoE layer a step); decode
    against a fresh prefill at ``FAMILY_BF16_TOL`` with the capacity
    lifted to E / k (no drop) and the prefill routed as the served path
    was (``forced_routing``; the prefill's own routing printed per layer
@@ -3486,6 +3488,31 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
+def eager_serve(cfg, params, reqs):
+    """Each request's tokens by rid from ``make_prefill_step`` and the
+    eager ``make_decode_step``, in ``ServingEngine._generate``'s order:
+    one prefill at ``LLM_CACHE_LEN``, then ``max_new_tokens`` greedy
+    decode steps at B = 1."""
+    prefill = make_prefill_step(cfg, cache_len=LLM_CACHE_LEN)
+    decode = make_decode_step(cfg)
+    tokens = {}
+    with torch.no_grad():
+        for r in reqs:
+            toks = torch.as_tensor(np.asarray(r.tokens, np.int64),
+                                   device=DEV)[None]
+            logits, cache = prefill(params, {"tokens": toks})
+            nxt = torch.argmax(logits, -1)[:, None]
+            got = []
+            for i in range(r.max_new_tokens):
+                got.append(int(nxt[0, 0]))
+                logits, cache = decode(params, {
+                    "tokens": nxt, "cache": cache,
+                    "decode_pos": toks.shape[1] + i})
+                nxt = torch.argmax(logits, -1)[:, None]
+            tokens[r.rid] = got
+    return tokens
+
+
 def serve_llm(tag, cfg, params):
     """``[llm]``'s workload through ``ServingEngine`` on the card: 8
     requests of 16-token prompts at 20 a second, 8 greedy tokens each, 4
@@ -3496,7 +3523,11 @@ def serve_llm(tag, cfg, params):
     serve runs the program as it is; the log comes from a second,
     untimed serve of the same requests under ``moe_log`` (whose router
     product, sort and host copies in every MoE layer would otherwise
-    enter the measured walls), which must give the same tokens."""
+    enter the measured walls), which must give the same tokens.  The
+    served decode steps replay CUDA graphs, inside which ``moe_log``
+    sees no dispatch, so the log's one-token dispatches come from the
+    same requests decoded eagerly (``eager_serve``), whose tokens must
+    equal the served ones bit for bit."""
     rng = np.random.default_rng(SEED)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size - 1, LLM_PROMPT)
                     .astype(np.int32), LLM_NEW, i / LLM_RATE)
@@ -3511,9 +3542,16 @@ def serve_llm(tag, cfg, params):
     if cfg.moe is not None:
         with moe_log() as log:
             logged = eng.serve(reqs)
+        with moe_log() as eager_log:
+            eager = eager_serve(cfg, params, reqs)
+        log["drops"] += [d for d in eager_log["drops"] if d[0] == 1]
         check([r.tokens.tolist() for r in logged["responses"]]
               == [r.tokens.tolist() for r in out["responses"]],
               f"{tag}: the logged serve's tokens differ from the timed one's")
+        check(all(eager[r.rid] == r.tokens.tolist()
+                  for r in out["responses"]),
+              f"{tag}: the served (graphed) decode's tokens differ from "
+              f"the eager decode's")
         print(f"[{tag}] the same serve under moe_log (not reported): "
               f"{logged['throughput_rps']:.4f} req/s on the virtual "
               f"clock, the same tokens")
@@ -3589,7 +3627,9 @@ def phase_family(arch, profile=False):
         print(f"[{tag}] capacity factor {cfg.moe.capacity_factor}: the "
               f"served prefills dropped {sum(pre)} (token, expert) pairs "
               f"over {len(pre)} dispatches ({LLM_PROMPT} tokens x top-"
-              f"{cfg.moe.top_k}), the decodes {sum(dec)} over {len(dec)}")
+              f"{cfg.moe.top_k}), the eager decodes of the served "
+              f"requests {sum(dec)} over {len(dec)}")
+        check(len(dec) > 0, f"{tag}: no one-token decode dispatch logged")
         check(sum(dec) == 0, f"{tag}: a one-token decode dropped a pair")
     if profile:
         profile_llm(cfg, params, torch.as_tensor(

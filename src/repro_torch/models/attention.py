@@ -163,7 +163,8 @@ def init_gqa_cache(cfg: ModelConfig, spec: LayerSpec, batch, cache_len,
 def _ring_positions(cache_len, next_pos, device=None):
     """Positions stored at each ring slot after ``next_pos`` tokens have been
     written (token i lives at slot i % cache_len).  Slot s holds the largest
-    position p < next_pos with p ≡ s (mod cache_len)."""
+    position p < next_pos with p ≡ s (mod cache_len).  ``next_pos`` is an
+    int or a 0-d tensor on ``device``."""
     slots = torch.arange(cache_len, dtype=torch.int64, device=device)
     last = next_pos - 1
     k_pos = last - torch.remainder(last - slots, cache_len)
@@ -208,10 +209,18 @@ def apply_gqa(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
 
 def _write_ring(cache, k, v, slot):
     """A copy of the ring with the decode token's K/V at ``slot``."""
-    ck, cv = cache["k"].clone(), cache["v"].clone()
-    ck[:, slot:slot + 1] = k
-    cv[:, slot:slot + 1] = v
-    return {"k": ck, "v": cv}
+    return {"k": _put(cache["k"].clone(), k, slot),
+            "v": _put(cache["v"].clone(), v, slot)}
+
+
+def _put(ring, new, slot):
+    """``ring`` with ``new`` (B, 1, ...) written at ``slot`` on axis 1: a
+    slice for an int, ``index_copy_`` for a 0-d device tensor (no host
+    read, so a CUDA graph can capture it)."""
+    if isinstance(slot, torch.Tensor):
+        return ring.index_copy_(1, slot.reshape(1), new)
+    ring[:, slot:slot + 1] = new
+    return ring
 
 
 def _fill_cache(cache, k, v, T):
@@ -336,10 +345,8 @@ def apply_mla(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
 def _write_latent(cache, ckv, kpe, slot):
     """A copy of the latent ring with the decode token's compressed KV
     and rope key at ``slot``."""
-    cckv, ckpe = cache["ckv"].clone(), cache["kpe"].clone()
-    cckv[:, slot:slot + 1] = ckv
-    ckpe[:, slot:slot + 1] = kpe
-    return {"ckv": cckv, "kpe": ckpe}
+    return {"ckv": _put(cache["ckv"].clone(), ckv, slot),
+            "kpe": _put(cache["kpe"].clone(), kpe, slot)}
 
 
 def _fill_mla_cache(cache, ckv, kpe, T):

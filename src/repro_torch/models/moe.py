@@ -153,11 +153,11 @@ def _expert_ffn(we, x_disp):
     return torch.bmm(gate * up, we["w_down"])
 
 
-def _moe_flat(p, m: MoEConfig, x_flat, C):
-    """Dispatch+compute+combine over one token pool (T, d)."""
+def _moe_routed(p, m: MoEConfig, x_flat, w, idx, C):
+    """Dispatch+compute+combine over one token pool (T, d) whose router
+    chose ``idx`` (T, k) with weights ``w``."""
     T, d = x_flat.shape
     E, k = m.n_experts, m.top_k
-    w, idx, aux = route(x_flat, p["router"]["w"], m)
     slot_tok, slot_w, pair_slot = _dispatch_tables(w, idx, T, E, k, C)
     # a gather whose backward adds in a fixed order (layers.apply_embedding)
     x_disp = F.embedding(slot_tok, x_flat).reshape(E, C, d) * (
@@ -172,25 +172,51 @@ def _moe_flat(p, m: MoEConfig, x_flat, C):
     out = torch.zeros((T, d), dtype=y.dtype, device=x_flat.device)
     for j in range(k):
         out = out + y_pad[pair_slot[:, j]]
-    return out, aux
+    return out
 
 
-def apply_moe(p, cfg: ModelConfig, x):
-    """x: (B, S, d) -> (B, S, d), aux."""
-    m = cfg.moe
+def _pools(x, m: MoEConfig):
+    """The token pools of ``x`` (B, S, d) and their capacity: one pool of
+    every token ("global") or one a batch row ("batched")."""
     B, S, d = x.shape
     if m.dispatch == "batched":
+        return [x[b] for b in range(B)], capacity(S, m)
+    return [x.reshape(B * S, d)], capacity(B * S, m)
+
+
+def apply_moe(p, cfg: ModelConfig, x, experts=None):
+    """x: (B, S, d) -> (B, S, d), aux.  Each token pool is routed
+    (``route``), then ``experts(p, cfg, x, choices)`` runs the rest of
+    the layer on the pools' chosen ``(w, idx)``: ``moe_experts`` unless
+    given (the graphed decode step gives its replay of it,
+    ``runtime.steps.GraphedDecode``)."""
+    m = cfg.moe
+    if m.dispatch == "batched":
         x = constrain(x, "batch", None, None)
-        C = capacity(S, m)
-        rows = [_moe_flat(p, m, x[b], C) for b in range(B)]
-        out = torch.stack([r[0] for r in rows])
-        aux = {key: torch.stack([r[1][key] for r in rows]).mean()
-               for key in rows[0][1]}
-        out = constrain(out, "batch", None, None)
+    pools, _ = _pools(x, m)
+    routed = [route(xf, p["router"]["w"], m) for xf in pools]
+    out = (experts or moe_experts)(p, cfg, x, [r[:2] for r in routed])
+    if len(routed) > 1:                 # "batched": the mean over rows
+        aux = {key: torch.stack([r[2][key] for r in routed]).mean()
+               for key in routed[0][2]}
     else:
-        T = B * S
-        out, aux = _moe_flat(p, m, x.reshape(T, d), capacity(T, m))
-        out = out.reshape(B, S, d)
+        aux = routed[0][2]
+    return out, aux
+
+
+def moe_experts(p, cfg: ModelConfig, x, choices):
+    """The MoE layer after its router: each pool's dispatch, experts and
+    combine at its ``(w, idx)`` of ``choices``, then the shared experts;
+    (B, S, d)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    pools, C = _pools(x, m)
+    outs = [_moe_routed(p, m, xf, w, idx, C)
+            for xf, (w, idx) in zip(pools, choices)]
+    if m.dispatch == "batched":
+        out = constrain(torch.stack(outs), "batch", None, None)
+    else:
+        out = outs[0].reshape(B, S, d)
     if "shared" in p:
         out = out + layers.apply_mlp(p["shared"], x)
-    return out, aux
+    return out

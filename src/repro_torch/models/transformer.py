@@ -70,29 +70,41 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch, cache_len,
     return c
 
 
+def mixer_half(p, cfg: ModelConfig, spec: LayerSpec, h, positions,
+               mode="train", cache=None, decode_pos=None):
+    """A layer up to its ffn: (h after the mixer's residual, the mixer's
+    new cache, the ffn's normed input, None without an ffn)."""
+    h_norm = layers.apply_rms_norm(p["mixer_norm"], h, cfg.norm_eps)
+    if spec.mixer == "attn":
+        y, mc = attention.apply_attention(p["mixer"], cfg, spec, h_norm,
+                                          positions, mode=mode, cache=cache,
+                                          decode_pos=decode_pos)
+    elif spec.mixer == "mamba":
+        y, mc = mamba.apply_mamba(p["mixer"], cfg, h_norm, mode=mode,
+                                  cache=cache)
+    else:
+        y, mc = rwkv.apply_rwkv(p["mixer"], cfg, h_norm, mode=mode,
+                                cache=cache)
+    h = add_residual(h, y)
+    f_norm = (layers.apply_rms_norm(p["ffn_norm"], h, cfg.norm_eps)
+              if spec.ffn != "none" else None)
+    return h, mc, f_norm
+
+
+def add_residual(h, y):
+    return constrain(h + y, "batch", "seq", None)
+
+
 def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, h, positions,
                 mode="train", cache=None, decode_pos=None):
     """One layer: (h, its new cache, its auxiliary losses)."""
     cache = cache or {}
-    h_norm = layers.apply_rms_norm(p["mixer_norm"], h, cfg.norm_eps)
-    if spec.mixer == "attn":
-        y, mc = attention.apply_attention(p["mixer"], cfg, spec, h_norm,
-                                          positions, mode=mode,
-                                          cache=cache.get("mixer"),
-                                          decode_pos=decode_pos)
-    elif spec.mixer == "mamba":
-        y, mc = mamba.apply_mamba(p["mixer"], cfg, h_norm, mode=mode,
-                                  cache=cache.get("mixer"))
-    else:
-        y, mc = rwkv.apply_rwkv(p["mixer"], cfg, h_norm, mode=mode,
-                                cache=cache.get("mixer"))
-    h = h + y
-    h = constrain(h, "batch", "seq", None)
-
+    h, mc, f_norm = mixer_half(p, cfg, spec, h, positions, mode=mode,
+                               cache=cache.get("mixer"),
+                               decode_pos=decode_pos)
     aux = dict(ZERO_AUX)
     fc: Any = {}
     if spec.ffn != "none":
-        f_norm = layers.apply_rms_norm(p["ffn_norm"], h, cfg.norm_eps)
         if spec.ffn == "dense":
             f = layers.apply_mlp(p["ffn"], f_norm)
         elif spec.ffn == "moe":
@@ -102,8 +114,7 @@ def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, h, positions,
             f, fc = rwkv.apply_rwkv_cmix(p["ffn"], cfg, f_norm, mode=mode,
                                          cache=cache.get("ffn"))
             fc = fc or {}
-        h = h + f
-        h = constrain(h, "batch", "seq", None)
+        h = add_residual(h, f)
     new_cache = {"mixer": mc if mc is not None else {}, "ffn": fc}
     return h, new_cache, aux
 
@@ -257,9 +268,21 @@ def logits_fn(p, cfg: ModelConfig, h):
     return _unembed(p, cfg, h)
 
 
+def embed(p, cfg: ModelConfig, batch_in):
+    """The inputs' embeddings (B, S, d), constrained."""
+    return constrain(_embed_inputs(p, cfg, batch_in), "batch", "seq", None)
+
+
+def head(p, cfg: ModelConfig, h):
+    """The final norm and unembedding of ``h``: logits, constrained."""
+    return constrain(logits_fn(p, cfg, h), "batch", "seq", "tensor")
+
+
 def _repetition(lps, lcs, pattern, cfg, h, positions, mode, decode_pos):
-    """One repetition of a stage's pattern (the reference's scan body):
-    (h, the layers' new caches, their auxiliary losses summed)."""
+    """The layers ``lps`` with their caches ``lcs`` and specs ``pattern``
+    in order: one repetition of a stage's pattern (the reference's scan
+    body), or a run of a decode step (``decode_run``).  Returns (h, the
+    layers' new caches, their auxiliary losses summed)."""
     ncs, aux_tot = [], dict(ZERO_AUX)
     for lp, lc, spec in zip(lps, lcs, pattern):
         h, nc, aux = apply_layer(lp, cfg, spec, h, positions, mode=mode,
@@ -274,8 +297,9 @@ def model_apply(p, cfg: ModelConfig, batch_in: Dict[str, Any],
                 mode: str = "train", cache: Optional[List] = None,
                 decode_pos: Optional[int] = None, remat: bool = False):
     """Returns (logits, new_cache, aux).  ``decode_pos`` is the position
-    of the one new token in decode mode.  Float32 products run in IEEE
-    float32 whatever the process-wide TF32 settings say
+    of the one new token in decode mode, an int or a 0-d int64 tensor on
+    the inputs' device (never read on the host).  Float32 products run
+    in IEEE float32 whatever the process-wide TF32 settings say
     (``device.ieee_float32``).  ``aux`` holds the auxiliary losses of
     the MoE layers, summed over layers (zero without one), and in train
     mode, for a model with the multi-token-prediction head,
@@ -285,12 +309,10 @@ def model_apply(p, cfg: ModelConfig, batch_in: Dict[str, Any],
     body): autograd keeps the stage's input to each repetition, not the
     activations inside it.  Values are the same either way; with grad
     disabled ``remat`` changes nothing."""
-    h = _embed_inputs(p, cfg, batch_in)
+    h = embed(p, cfg, batch_in)
     B, S, _ = h.shape
-    h = constrain(h, "batch", "seq", None)
     if mode == "decode":
-        positions = torch.full((B, 1), int(decode_pos), dtype=torch.int64,
-                               device=h.device)
+        positions = decode_positions(decode_pos, B, h.device)
     else:
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
     rep = _repetition
@@ -313,11 +335,79 @@ def model_apply(p, cfg: ModelConfig, batch_in: Dict[str, Any],
         new_caches.append({"caches": ncs})
         aux_tot = {k: aux_tot[k] + aux_stage[k] for k in aux_tot}
 
-    logits = logits_fn(p, cfg, h)
-    logits = constrain(logits, "batch", "seq", "tensor")
+    logits = head(p, cfg, h)
     if cfg.mtp and mode == "train":
         aux_tot["mtp_logits"] = _mtp_logits(p, cfg, h, batch_in, positions)
     return logits, (new_caches if cache is not None else None), aux_tot
+
+
+def decode_positions(decode_pos, B, device):
+    """The (B, 1) positions of a decode token at ``decode_pos``: an int,
+    or a 0-d tensor on ``device``, which is viewed, never read."""
+    if isinstance(decode_pos, torch.Tensor):
+        return decode_pos.reshape(1, 1).expand(B, 1)
+    return torch.full((B, 1), int(decode_pos), dtype=torch.int64,
+                      device=device)
+
+
+def decode_runs(cfg: ModelConfig):
+    """A decode step cut at each MoE layer's router: ``(start, stop)``
+    over the flat layer list, every run but the last ending with an MoE
+    layer, whose ffn runs apart from the run (``decode_run``)."""
+    runs, start = [], 0
+    for i, spec in enumerate(cfg.layer_specs()):
+        if spec.ffn == "moe":
+            runs.append((start, i + 1))
+            start = i + 1
+    return runs + [(start, cfg.n_layers)]
+
+
+def flat_layers(tree, key):
+    """The per-layer entries of a stage tree (``params["stages"]`` with
+    ``key="layers"``, a cache with ``"caches"``) in execution order."""
+    return [x for stage in tree for x in stage[key]]
+
+
+def decode_run(p, cfg: ModelConfig, run, h, f, cache, decode_pos):
+    """One run of ``decode_runs`` in a decode step, its caches written in
+    place into ``cache``.  It starts from the tokens (B, 1) in ``h`` for
+    the first run, else from the residual stream ``h`` plus the MoE layer
+    output ``f`` before it.  Returns the run's MoE layer's (h, ffn input),
+    or the last run's logits (B, V): ``model_apply``'s decode operations
+    in its order (``embed``, ``_repetition``, ``head``)."""
+    start, stop = run
+    h = embed(p, cfg, {"tokens": h}) if start == 0 else add_residual(h, f)
+    positions = decode_positions(decode_pos, h.shape[0], h.device)
+    lps, lcs = flat_layers(p["stages"], "layers"), flat_layers(cache, "caches")
+    specs = cfg.layer_specs()
+    routed = stop > start and specs[stop - 1].ffn == "moe"
+    end = stop - 1 if routed else stop
+    h, ncs, _ = _repetition(lps[start:end], lcs[start:end], specs[start:end],
+                            cfg, h, positions, "decode", decode_pos)
+    write_back(lcs[start:end], ncs)
+    if not routed:
+        return head(p, cfg, h)[:, -1]
+    h, mc, f_norm = mixer_half(lps[end], cfg, specs[end], h, positions,
+                               "decode", lcs[end]["mixer"], decode_pos)
+    write_back(lcs[end]["mixer"], mc)
+    return h, f_norm
+
+
+def write_back(dst, src):
+    """Copy the cache tree ``src`` into ``dst`` leaf by leaf (shapes
+    equal: a copy never broadcasts here)."""
+    if isinstance(dst, torch.Tensor):
+        if src.shape != dst.shape:
+            raise ValueError(f"a cache leaf of shape {tuple(src.shape)} "
+                             f"for one of {tuple(dst.shape)}")
+        if src is not dst:
+            dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            write_back(dst[k], src[k])
+    else:
+        for d, s in zip(dst, src):
+            write_back(d, s)
 
 
 def _mtp_logits(p, cfg, h, batch_in, positions):

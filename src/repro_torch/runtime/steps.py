@@ -2,6 +2,9 @@
 package's ``runtime/steps.py``).  The reference jits each step; here
 each is a plain function that runs eagerly on the device of its inputs.
 
+``GraphedDecode`` is the decode step replayed from CUDA graphs, which
+``serving.ServingEngine`` runs on a CUDA device.
+
 A train state is the reference's tree, ``{"params": ..., "opt": {"m",
 "v", "step"}}``, of tensors.  The train step passes its gradients
 through ``sharding.rules.constrain_like_params``, as the reference's
@@ -15,9 +18,12 @@ from typing import Any, Dict
 import torch
 
 from ..device import cudnn_deterministic, ieee_float32
-from ..models import init_cache, init_model, model_apply
+from ..models import init_cache, init_model, model_apply, moe
 from ..models.config import ModelConfig
 from ..models.layers import cross_entropy
+from ..models.transformer import (decode_run, decode_runs, flat_layers,
+                                  write_back)
+from ..obs.trace import span
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..optim.adamw import tree_map
 from ..sharding.rules import constrain_like_params
@@ -129,6 +135,135 @@ def make_decode_step(cfg: ModelConfig):
             cache=batch["cache"], decode_pos=batch["decode_pos"])
         return logits[:, -1], cache
     return decode
+
+
+class GraphedDecode:
+    """``decode(params, batch)``: the step of ``make_decode_step`` over
+    fixed buffers, cut at each MoE layer's router
+    (``models.transformer.decode_runs``).  On a CUDA device the first
+    call runs the step eagerly, then captures each run and each MoE
+    layer's work after its router as CUDA graphs in one memory pool;
+    every later call replays them.  On the CPU every call runs eagerly
+    over the same buffers.
+
+    The router stays eager: at every call each MoE layer calls
+    ``models.moe.apply_moe`` (looked up then, as ``model_apply`` does),
+    which calls ``route`` and hands its fresh ``(w, idx)`` to
+    ``MoEGraph``, which copies them into the graph's inputs and replays
+    the dispatch, experts and combine inside that call.
+
+    One set of graphs serves one batch size, cache shape and parameter
+    tree, those of the first call; ``decode_pos`` is held in a 0-d device
+    tensor (``fill_``, no host read) and the cache in buffers that the
+    step writes.  It returns those buffers as its cache: a call with
+    another cache (a new request's prefill) copies it in first.  So the
+    returned logits and cache are rewritten by the next call."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.runs = decode_runs(cfg)
+        self.params = self.cache = None
+        self.graphs = []                # (graph, what it returns) a run
+        self.experts = []               # (ffn params, MoEGraph) a router
+
+    @torch.no_grad()
+    def __call__(self, params, batch):
+        if self.cache is None:
+            self._fix(params, batch)
+        elif params is not self.params:
+            raise ValueError("this decode step holds another parameter "
+                             "tree: make a step for each")
+        if self.graphs:
+            with span("llm.decode_graph"):
+                return self._step(batch, self._replayed), self.cache
+        logits = self._step(batch, self._eager)
+        if self.tokens.device.type == "cuda":
+            self._capture()
+        return logits, self.cache
+
+    def _fix(self, params, batch):
+        tokens = batch["tokens"]
+        self.params = params
+        self.cache = tree_map(torch.empty_like, batch["cache"])
+        self.tokens = torch.empty(tokens.shape, dtype=torch.int64,
+                                  device=tokens.device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=tokens.device)
+        ffn = [lp["ffn"] for lp in flat_layers(params["stages"], "layers")]
+        self.experts = [(ffn[stop - 1], MoEGraph())
+                        for _, stop in self.runs[:-1]]
+
+    def _step(self, batch, run):
+        if batch["cache"] is not self.cache:
+            write_back(self.cache, batch["cache"])
+        self.tokens.copy_(batch["tokens"])
+        self.pos.fill_(batch["decode_pos"])
+        with ieee_float32():
+            return self._walk(run, self._routed)
+
+    def _walk(self, run, ffn):
+        """The step: ``run(i, h, f)`` for each run and, between two,
+        ``ffn(params, x, experts)`` for the MoE layer that ends the first;
+        returns the last run's logits."""
+        h, f = self.tokens, None
+        for i, (p, experts) in enumerate(self.experts):
+            h, x = run(i, h, f)
+            f = ffn(p, x, experts)
+        return run(len(self.experts), h, f)
+
+    def _eager(self, i, h, f):
+        return decode_run(self.params, self.cfg, self.runs[i], h, f,
+                          self.cache, self.pos)
+
+    def _replayed(self, i, h, f):
+        graph, out = self.graphs[i]
+        graph.replay()
+        return out
+
+    def _routed(self, p, x, experts):
+        return moe.apply_moe(p, self.cfg, x, experts=experts)[0]
+
+    def _capture(self):
+        pool = torch.cuda.graph_pool_handle()
+
+        def run(i, h, f):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                out = self._eager(i, h, f)
+            self.graphs.append((graph, out))
+            return out
+
+        with ieee_float32():
+            self._walk(run, lambda p, x, experts: experts.capture(
+                p, self.cfg, x, pool))
+
+
+class MoEGraph:
+    """What follows an MoE layer's router in ``GraphedDecode``, as
+    ``apply_moe``'s ``experts``: each call copies the router's ``(w,
+    idx)`` into fixed inputs, then runs ``moe.moe_experts`` on them, or,
+    once captured, replays it.  ``out`` is the captured output."""
+
+    def __init__(self):
+        self.choices = self.graph = self.out = None
+
+    def __call__(self, p, cfg, x, choices):
+        if self.choices is None:
+            self.choices = [(w.clone(), idx.clone()) for w, idx in choices]
+        else:
+            for fixed, new in zip(self.choices, choices):
+                for a, b in zip(fixed, new):
+                    a.copy_(b)
+        if self.graph is None:
+            return moe.moe_experts(p, cfg, x, self.choices)
+        self.graph.replay()
+        return self.out
+
+    def capture(self, p, cfg, x, pool):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            self.out = moe.moe_experts(p, cfg, x, self.choices)
+        self.graph = graph
+        return self.out
 
 
 def _seq_len(cfg: ModelConfig, batch):

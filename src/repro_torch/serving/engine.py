@@ -42,7 +42,8 @@ from ..models import init_model
 from ..models.config import ModelConfig
 from ..obs.metrics import detection_latency_keys
 from ..obs.trace import NULL_RECORDER, Timed, span
-from ..runtime.steps import make_decode_step, make_prefill_step
+from ..runtime.steps import (GraphedDecode, make_decode_step,
+                             make_prefill_step)
 from .pipeline import TickPipeline, bucket, chunk_size, confirmed_ids
 
 
@@ -209,7 +210,8 @@ class ServingEngine:
             cfg, torch.Generator().manual_seed(seed), device=self.device)
         self.cache_len = cache_len
         self.prefill = make_prefill_step(cfg, cache_len=cache_len)
-        self.decode = make_decode_step(cfg)
+        self.decode = (GraphedDecode(cfg) if self.device.type == "cuda"
+                       else make_decode_step(cfg))
         speeds = list(replica_speeds or [1.0] * n_replicas)
         self.replicas = [ReplicaExecutor(i, s) for i, s in enumerate(speeds)]
         self.scheduler = make_scheduler(scheduler, self.replicas,
@@ -227,7 +229,9 @@ class ServingEngine:
         """Prefill, then greedy decode.  The spans split the host's time:
         ``llm.prefill`` and each ``llm.decode`` enqueue their step and
         its argmax (no synchronize), ``llm.read`` is each blocking read
-        of a token and the final synchronize."""
+        of a token and the final synchronize.  On a card the decode step
+        replays from CUDA graphs (``runtime.steps.GraphedDecode``, inside
+        an ``llm.decode_graph`` span)."""
         t0 = time.perf_counter()
         with span("llm.prefill"):
             toks = torch.as_tensor(np.asarray(req.tokens, np.int64),

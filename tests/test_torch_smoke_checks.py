@@ -393,6 +393,34 @@ def test_moe_capacity_lift_is_why_decode_equals_prefill(family_smoke_f32):
     assert max(r[1] for r in rows) <= smoke.LLM_F32_TOL
 
 
+@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v3-671b"])
+def test_eager_serve_gives_the_engines_tokens_and_its_decode_dispatches(
+        family_smoke_f32, monkeypatch, arch):
+    """chip_smoke's ``eager_serve`` decodes the served requests as
+    ``ServingEngine._generate`` does: the same tokens by rid, and under
+    ``moe_log`` one one-token dispatch an MoE layer a decode step, which
+    is what ``phase_family``'s decode drop check counts (the served
+    decodes, replayed from graphs on a card, log none)."""
+    import numpy as np
+
+    from repro_torch.serving import Request, ServingEngine
+    monkeypatch.setattr(smoke, "DEV", "cpu")
+    cfg, params, _ = family_smoke_f32(arch)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size - 1, P)
+                    .astype(np.int32), 5, float(i))
+            for i, P in enumerate((3, 9))]
+    served = ServingEngine(cfg, params, n_replicas=1,
+                           cache_len=smoke.LLM_CACHE_LEN,
+                           device="cpu").serve(reqs)["responses"]
+    with smoke.moe_log() as log:
+        eager = smoke.eager_serve(cfg, params, reqs)
+    assert {r.rid: r.tokens.tolist() for r in served} == eager
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs())
+    assert [T for T, _ in log["drops"] if T == 1] == [1] * (2 * 5 * n_moe)
+    assert sum(d for T, d in log["drops"] if T == 1) == 0
+
+
 def test_forced_routing_routes_as_told_and_restores():
     """``forced_routing`` makes ``models.moe.route`` return the experts it
     is given, weighted by the router's own normalized scores at them, and

@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers
 from .config import LayerSpec, MLAConfig, ModelConfig
-from .rope import apply_rope
+from .rope import apply_rope, yarn_mscale
 
 NEG_INF = -1e30
 
@@ -282,6 +282,18 @@ def _mla_expand(p, cfg, ckv):
     return k_nope, v
 
 
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """``qk_dim ** -0.5``, times YaRN's ``mscale ** 2`` where the
+    configuration scales its rotary positions with ``mscale_all_dim``
+    (DeepSeek-V3: ``192 ** -0.5 * (0.1 ln 40 + 1) ** 2``), in prefill and
+    in the absorbed decode alike."""
+    m, y = cfg.mla, cfg.rope_scaling
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    if y is not None and y.mscale_all_dim:
+        scale = scale * yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
+
+
 def apply_mla(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
               mode="train", cache=None, decode_pos=None):
     m, H = cfg.mla, cfg.n_heads
@@ -292,16 +304,18 @@ def apply_mla(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
                             cfg.norm_eps)
     q = (q_lat @ p["wq_b"]).reshape(B, T, H, qk_dim)
     q_nope, q_pe = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
-    q_pe = apply_rope(q_pe, positions, cfg.rope_theta, "full")
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta, "full",
+                      cfg.rope_scaling)
     q = torch.cat([q_nope, q_pe], dim=-1)
 
     kv = x @ p["wkv_a"]
     ckv = layers.rms_norm(kv[..., :m.kv_lora_rank], p["kv_norm"]["scale"],
                           cfg.norm_eps)
     kpe = kv[..., m.kv_lora_rank:][:, :, None, :]       # single shared head
-    kpe = apply_rope(kpe, positions, cfg.rope_theta, "full")[:, :, 0]
+    kpe = apply_rope(kpe, positions, cfg.rope_theta, "full",
+                     cfg.rope_scaling)[:, :, 0]
 
-    scale = qk_dim ** -0.5
+    scale = mla_softmax_scale(cfg)
     window = spec.window or (cfg.decode_window if mode != "train" else None)
 
     new_cache = None

@@ -1,6 +1,10 @@
 """Unified model configuration covering every assigned architecture family
-(copied from the reference package's ``models/config.py``; only this
-docstring differs).
+(copied from the reference package's ``models/config.py``).  The port
+adds DeepSeek-V3's published router (expert groups, the correction bias,
+the routed scaling factor), the share of experts a card holds
+(``MoEConfig.expert_first``/``n_held``) and YaRN rotary positions
+(``ModelConfig.rope_scaling``); every added field defaults to the
+reference's behaviour.
 
 A model is a stack of *stages*; each stage repeats a *pattern* (period) of
 layers, and each layer is a (mixer, ffn) pair:
@@ -58,6 +62,28 @@ class MoEConfig:
     router_z_weight: float = 1e-3
     dispatch: str = "global"       # "global" (paper-faithful pool) |
     #                                "batched" (per-row; shard-local gather)
+    # DeepSeek-V3's "noaux_tc" router: the experts fall into n_group
+    # groups, the topk_group best groups (each scored by its two best
+    # choice scores) are kept, and the top_k come from them
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0   # the normalized weights' scale
+    correction_bias: bool = False  # a per-expert bias on the choice score
+    # the experts this card holds, ids expert_first .. expert_first +
+    # n_held - 1 of n_experts (expert parallelism); n_held 0: all of them
+    expert_first: int = 0
+    n_held: int = 0
+
+
+@dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN rotary scaling (DeepSeek-V3's ``rope_scaling``, type yarn)."""
+    factor: float = 40.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -99,6 +125,7 @@ class ModelConfig:
     causal: bool = True            # False => encoder-only (no decode path)
     rope: str = "full"             # "none" | "full" | "glm" (partial/2d)
     rope_theta: float = 10000.0
+    rope_scaling: Optional[YaRNConfig] = None   # None: unscaled rotary
     mla: Optional[MLAConfig] = None
     # --- mixture of experts ---
     moe: Optional[MoEConfig] = None

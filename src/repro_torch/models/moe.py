@@ -13,7 +13,21 @@ Two dispatch scopes (MoEConfig.dispatch):
               are the mean over rows.
 
 Softmax top-k routing (Grok/Jamba/Mixtral-style) and DeepSeek-V3 sigmoid
-routing with normalized top-k weights, plus shared experts.
+routing with normalized top-k weights, plus shared experts.  The port
+adds DeepSeek-V3's published router where the configuration asks for it
+(``n_group`` above 1 or a correction bias; the reference package has
+neither): the choice score is the sigmoid plus the bias, the
+``topk_group`` groups with the best two choice scores are kept, the top
+k are chosen inside them, and their weights are the sigmoid scores
+(without the bias) normalized and scaled by ``routed_scaling_factor``.
+
+An MoE layer may hold a share of its experts (``MoEConfig.n_held``,
+``expert_first``: expert parallelism, one card's share).  Its router
+still scores every expert and chooses the top k of all of them; its
+expert stacks hold only the share, the dispatch gives a slot only to a
+pair whose expert is held (any other pair goes to the overflow slot, as
+a dropped pair does), and the combine adds what the held experts give,
+then the shared experts.  What the other cards would add is not computed.
 
 Three parts decide which tokens are dropped and are exact against the
 reference: ``capacity``, ``route``'s ``idx`` (``jax.lax.top_k`` puts the
@@ -35,6 +49,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..obs.trace import span
 from ..sharding.context import constrain
 from . import layers
 from .config import ModelConfig, MoEConfig
@@ -44,14 +59,18 @@ def init_moe(generator, cfg: ModelConfig):
     m: MoEConfig = cfg.moe
     dt = layers.torch_dtype(cfg.param_dtype)
     E, d, f = m.n_experts, cfg.d_model, m.d_ff
+    held = held_count(m)
     p = {
         "router": {"w": layers.dense_init(generator, d, E, torch.float32)},
         "experts": {
-            "w_gate": _stack_init(generator, E, d, f, dt),
-            "w_up": _stack_init(generator, E, d, f, dt),
-            "w_down": _stack_init(generator, E, f, d, dt),
+            "w_gate": _stack_init(generator, held, d, f, dt),
+            "w_up": _stack_init(generator, held, d, f, dt),
+            "w_down": _stack_init(generator, held, f, d, dt),
         },
     }
+    if m.correction_bias:           # the published init: zero, then learned
+        p["router"]["bias"] = torch.zeros((E,), dtype=torch.float32,
+                                          device=generator.device)
     if m.n_shared_experts:
         sf = (m.shared_d_ff or m.d_ff) * m.n_shared_experts
         p["shared"] = layers.init_mlp(generator, d, sf, dt)
@@ -67,6 +86,11 @@ def _stack_init(generator, E, d_in, d_out, dt):
     for e in range(E):
         out[e] = layers.dense_init(generator, d_in, d_out, dt)
     return out
+
+
+def held_count(m: MoEConfig) -> int:
+    """How many experts the layer holds (all of them unless a share)."""
+    return m.n_held or m.n_experts
 
 
 def capacity(n_tokens: int, m: MoEConfig) -> int:
@@ -89,12 +113,53 @@ def router_scores(logits, m: MoEConfig):
     return torch.softmax(logits, dim=-1)
 
 
-def route(x_flat, router_w, m: MoEConfig):
-    """x_flat: (T, d) -> (weights (T,k), idx (T,k), aux dict)."""
+def published(m: MoEConfig, bias=None) -> bool:
+    """Whether the layer routes as DeepSeek-V3 publishes (groups or a
+    correction bias), else as the reference package does."""
+    return m.n_group > 1 or m.correction_bias or bias is not None
+
+
+def choice_scores(scores, m: MoEConfig, bias=None):
+    """The published router's choice scores (T, E): ``scores`` plus the
+    correction bias, and -inf outside the ``topk_group`` best of the
+    ``n_group`` groups, a group scored by the sum of its two best choice
+    scores (ties to the lower group).  Its top k are the experts."""
+    choice = scores if bias is None else scores + bias
+    T, E = choice.shape
+    grouped = choice.reshape(T, m.n_group, E // m.n_group)
+    _, best = top_k(top_k(grouped, 2)[0].sum(-1), m.topk_group)
+    keep = torch.zeros((T, m.n_group), dtype=torch.bool,
+                       device=choice.device).scatter_(1, best, True)
+    return torch.where(keep[:, :, None], grouped,
+                       float("-inf")).reshape(T, E)
+
+
+def chosen_weights(scores, idx, m: MoEConfig):
+    """The published router's weights: the scores at the chosen experts,
+    normalized to sum 1, times ``routed_scaling_factor``."""
+    w = scores.gather(-1, idx)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    if m.routed_scaling_factor != 1.0:
+        w = w * m.routed_scaling_factor
+    return w
+
+
+def route(x_flat, router_w, m: MoEConfig, bias=None):
+    """x_flat: (T, d) -> (weights (T,k), idx (T,k), aux dict); ``bias``
+    the correction bias (E,) where the layer has one."""
+    with span("moe.route"):
+        return _route(x_flat, router_w, m, bias)
+
+
+def _route(x_flat, router_w, m, bias):
     logits = x_flat.float() @ router_w                    # (T, E)
     scores = router_scores(logits, m)
-    w, idx = top_k(scores, m.top_k)
-    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    if published(m, bias):
+        _, idx = top_k(choice_scores(scores, m, bias), m.top_k)
+        w = chosen_weights(scores, idx, m)
+    else:
+        w, idx = top_k(scores, m.top_k)
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     probs = scores
     if m.router == "sigmoid":
         probs = scores / torch.clamp(scores.sum(-1, keepdim=True), min=1e-9)
@@ -120,21 +185,32 @@ def expert_counts(idx, E: int):
         0, flat, torch.ones_like(flat))
 
 
-def _dispatch_tables(w, idx, T: int, E: int, k: int, C: int):
+def _dispatch_tables(w, idx, T: int, E: int, k: int, C: int, first=None):
     """Sort-based dispatch tables: slot -> (token id, combine weight), and
     the slot of each (token, choice) pair of ``idx`` (T, k), ``E*C`` where
     the pair overflows its expert's C slots (a dropped pair).  Empty slots
     hold token 0 and weight 0; an overflowing pair is written nowhere
-    that is kept."""
+    that is kept.  With ``first``, the layer holds the ``E`` experts
+    ``first .. first + E - 1`` of a larger set: ``idx`` holds global ids,
+    a held expert's slots are those of its place in the share, and a pair
+    whose expert is not held gets slot ``E*C`` too."""
     e_flat = idx.reshape(-1)                              # (T*k,)
+    groups = E
+    if first is not None:           # the pairs held elsewhere sort last
+        e_flat = e_flat - first
+        e_flat = torch.where((e_flat >= 0) & (e_flat < E), e_flat,
+                             torch.full_like(e_flat, E))
+        groups = E + 1
     order = torch.argsort(e_flat, stable=True)            # group by expert
     e_sorted = e_flat[order]
-    counts = expert_counts(e_flat, E)
+    counts = expert_counts(e_flat, groups)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=idx.device) - starts[e_sorted]
     valid = pos < C
     dest = torch.where(valid, e_sorted * C + pos,
                        torch.full_like(pos, E * C))       # overflow slot
+    if first is not None:           # and so does a pair held elsewhere
+        dest = dest.clamp(max=E * C)
     tok_of = torch.div(order, k, rounding_mode="floor")
     # every overflowing pair lands in the extra slot E*C, cut off after
     slot_tok = torch.zeros(E * C + 1, dtype=torch.int64, device=w.device)
@@ -157,15 +233,17 @@ def _moe_routed(p, m: MoEConfig, x_flat, w, idx, C):
     """Dispatch+compute+combine over one token pool (T, d) whose router
     chose ``idx`` (T, k) with weights ``w``."""
     T, d = x_flat.shape
-    E, k = m.n_experts, m.top_k
-    slot_tok, slot_w, pair_slot = _dispatch_tables(w, idx, T, E, k, C)
+    E, k = held_count(m), m.top_k
+    share = {"first": m.expert_first} if m.n_held else {}
+    slot_tok, slot_w, pair_slot = _dispatch_tables(w, idx, T, E, k, C,
+                                                   **share)
     # a gather whose backward adds in a fixed order (layers.apply_embedding)
     x_disp = F.embedding(slot_tok, x_flat).reshape(E, C, d) * (
         slot_w.reshape(E, C, 1) > 0).to(x_flat.dtype)
     y = _expert_ffn(p["experts"], x_disp)
     y_flat = y.reshape(E * C, d) * slot_w[:, None].to(y.dtype)
     # each token's choices taken in ascending expert order; a dropped
-    # pair's slot E*C reads a zero row
+    # pair's slot E*C (and a pair held elsewhere) reads a zero row
     by_expert = torch.argsort(idx, dim=-1)                # experts distinct
     pair_slot = torch.gather(pair_slot, 1, by_expert)
     y_pad = torch.cat([y_flat, y_flat.new_zeros((1, d))])
@@ -190,11 +268,18 @@ def apply_moe(p, cfg: ModelConfig, x, experts=None):
     the layer on the pools' chosen ``(w, idx)``: ``moe_experts`` unless
     given (the graphed decode step gives its replay of it,
     ``runtime.steps.GraphedDecode``)."""
+    with span("moe"):
+        return _apply_moe(p, cfg, x, experts)
+
+
+def _apply_moe(p, cfg, x, experts):
     m = cfg.moe
     if m.dispatch == "batched":
         x = constrain(x, "batch", None, None)
     pools, _ = _pools(x, m)
-    routed = [route(xf, p["router"]["w"], m) for xf in pools]
+    router = p["router"]
+    bias = {"bias": router["bias"]} if "bias" in router else {}
+    routed = [route(xf, router["w"], m, **bias) for xf in pools]
     out = (experts or moe_experts)(p, cfg, x, [r[:2] for r in routed])
     if len(routed) > 1:                 # "batched": the mean over rows
         aux = {key: torch.stack([r[2][key] for r in routed]).mean()

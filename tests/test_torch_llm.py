@@ -85,14 +85,38 @@ def ref_weights(arch, seed=0):
 
 
 # ------------------------------------------------------------- configs
+#: the configuration fields the port adds (DeepSeek-V3's published router,
+#: the share of experts a card holds, YaRN), at their defaults: the
+#: reference package's behaviour
+PORT_ONLY = {"rope_scaling": None}
+MOE_PORT_ONLY = {"n_group": 1, "topk_group": 1, "routed_scaling_factor": 1.0,
+                 "correction_bias": False, "expert_first": 0, "n_held": 0}
+#: where the port departs from the defaults: deepseek-v3's full preset
+#: routes and scales its rotary positions as published
+PUBLISHED = {"rope_scaling": {"factor": 40.0,
+                              "original_max_position_embeddings": 4096,
+                              "beta_fast": 32.0, "beta_slow": 1.0,
+                              "mscale": 1.0, "mscale_all_dim": 1.0}}
+MOE_PUBLISHED = dict(MOE_PORT_ONLY, n_group=8, topk_group=4,
+                     routed_scaling_factor=2.5, correction_bias=True)
+
+
 @pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("preset", ["smoke", "full"])
 def test_configs_equal_reference(arch, preset):
-    want = dataclasses.asdict(jget(arch, preset=preset))
-    assert dataclasses.asdict(get_config(arch, preset=preset)) == want
-    assert dataclasses.asdict(get_config(arch, preset=preset,
-                                         variant="swa")) == \
-        dataclasses.asdict(jget(arch, preset=preset, variant="swa"))
+    """Every field the reference has is equal; the fields the port adds
+    keep the reference's behaviour, but in deepseek-v3's full preset."""
+    published = arch == "deepseek-v3-671b" and preset == "full"
+    for variant in (None, "swa"):
+        got = dataclasses.asdict(get_config(arch, preset=preset,
+                                            variant=variant))
+        want = dataclasses.asdict(jget(arch, preset=preset, variant=variant))
+        extra = {k: got.pop(k) for k in PORT_ONLY}
+        assert extra == (PUBLISHED if published else PORT_ONLY)
+        if got["moe"] is not None:
+            extra = {k: got["moe"].pop(k) for k in MOE_PORT_ONLY}
+            assert extra == (MOE_PUBLISHED if published else MOE_PORT_ONLY)
+        assert got == want
 
 
 def test_unported_architectures_raise():

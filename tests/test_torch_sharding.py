@@ -112,7 +112,19 @@ def test_param_specs_match_the_reference(arch, mesh):
     cfg = get_config(arch, "full")
     port = _port_by_path(param_specs(param_shapes(cfg), port_mesh))
     ref = _ref_by_path(jrules.param_specs(_ref_params(arch), ref_mesh))
+    # deepseek-v3's correction bias, which the reference package lacks, is
+    # replicated, as the router beside it
+    bias = {p: port.pop(p) for p in list(port) if p.endswith("router/bias")}
+    assert set(bias.values()) <= {(None,)}
+    assert len(bias) == _bias_layers(cfg)
     _assert_same_specs(port, ref, cfg, "stages")
+
+
+def _bias_layers(cfg):
+    """MoE layers with a correction bias: the port's own leaves."""
+    return cfg.moe.correction_bias * sum(
+        s.repeats * sum(l.ffn == "moe" for l in s.pattern)
+        for s in cfg.stages) if cfg.moe else 0
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -135,7 +147,9 @@ def test_batch_spec_matches_the_reference(arch):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_count_params_matches_the_reference(arch):
     ref = sum(math.prod(x.shape) for x in jax.tree.leaves(_ref_params(arch)))
-    assert count_params(param_shapes(get_config(arch, "full"))) == ref
+    cfg = get_config(arch, "full")
+    bias = _bias_layers(cfg) * cfg.moe.n_experts if cfg.moe else 0
+    assert count_params(param_shapes(cfg)) == ref + bias
 
 
 _NAMES = st.sampled_from([None] + sorted(LOGICAL_AXES))

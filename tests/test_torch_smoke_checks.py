@@ -437,3 +437,55 @@ def test_forced_routing_routes_as_told_and_restores():
     assert moe.route is sound and torch.equal(idx, forced)
     p = torch.softmax(x @ w, -1).gather(-1, forced)
     assert torch.allclose(wt, p / p.sum(-1, keepdim=True))
+
+
+def test_forced_routing_weighs_as_the_published_router():
+    """Under DeepSeek-V3's published router (groups, a correction bias),
+    ``forced_routing`` weighs the given experts by the sigmoid scores at
+    them, normalized and scaled by ``routed_scaling_factor``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    m = get_config("deepseek-v3-671b", preset="small").moe
+    g = torch.Generator().manual_seed(0)
+    x, w = torch.randn((5, 8), generator=g), torch.randn((8, 16), generator=g)
+    forced = torch.tensor([[15, 0, 3, 7]] * 5)
+    with smoke.forced_routing([forced]):
+        wt, idx, _ = moe.route(x, w, m, bias=torch.full((16,), 0.5))
+    assert torch.equal(idx, forced)
+    p = torch.sigmoid(x @ w).gather(-1, forced)
+    assert torch.allclose(wt, 2.5 * p / p.sum(-1, keepdim=True))
+
+
+def test_routing_report_compares_the_chosen_experts_as_sets():
+    """The new token's experts agree where the fresh prefill chose the
+    same set, in whatever order ``top_k`` listed it; one expert changed
+    is a difference, and the report says how many are in common."""
+    served = [(torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]]), None)]
+    reordered = [(torch.tensor([[3, 2, 1, 0], [7, 4, 6, 5]]), torch.ones(2))]
+    one = [(torch.tensor([[0, 1, 2, 3], [4, 5, 6, 9]]), torch.ones(2))]
+    assert smoke.routing_report(served, reordered) == (True, 0, [
+        (True, 1.0, 4)])
+    agree, differ, per_layer = smoke.routing_report(served, one)
+    assert not agree and differ == 1 and per_layer == [(False, 1.0, 3)]
+
+
+def test_routing_check_catches_the_router_fault():
+    """Decode against prefill on the small DeepSeek-V3 preset (the
+    published router, float32): the prefill's own router chooses the new
+    token's experts as the decode did at every step, and with
+    ``ROUTER_FAULTS``' group limit dropped in the decode at no more than
+    half of them, as ``decode_against_prefill`` requires."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    cfg = get_config("deepseek-v3-671b", preset="small")
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size - 1, 16)
+    lifted = smoke.lift_capacity(cfg)
+    sound = smoke.decode_gaps(lifted, params, prompt, smoke.LLM_NEW)
+    assert all(r[5][0] for r in sound)
+    for fault in smoke.FAMILY_ROUTER_FAULTS["deepseek-v3-671b"]:
+        rows = smoke.decode_gaps(lifted, params, prompt, smoke.LLM_NEW,
+                                 fault)
+        assert 2 * sum(r[5][0] for r in rows) <= len(rows)

@@ -183,6 +183,26 @@ def test_token_serve_has_every_range_and_keeps_its_tokens():
     assert len(_named(rs, "llm.decode")) == len(_named(rs, "llm.read")) == 8
 
 
+def test_moe_layers_open_a_range_and_their_router_one_inside_it():
+    """An MoE model's serve (deepseek-v3's smoke preset: 1 MoE layer)
+    opens one ``repro.moe`` range a layer call and one ``repro.moe.route``
+    inside each, in the prefill and in every decode step alike."""
+    eng = ServingEngine(get_config("deepseek-v3-671b", preset="smoke"),
+                        n_replicas=2, cache_len=32, device="cpu")
+    eng.warmup(6)
+    plain = eng.serve(_requests())
+    rs, traced = _ranges(lambda: eng.serve(_requests()))
+    assert [r.tokens.tolist() for r in traced["responses"]] == \
+        [r.tokens.tolist() for r in plain["responses"]]
+    assert {n for n, _, _ in rs} - {"gc"} == LLM_SPANS | {"moe",
+                                                         "moe.route"}
+    moes, routes = _named(rs, "moe"), _named(rs, "moe.route")
+    assert len(moes) == len(routes) == 2 + 8    # 2 prefills, 8 steps
+    assert all(_inside(r, moes) for r in routes)
+    steps = _named(rs, "llm.prefill") + _named(rs, "llm.decode")
+    assert all(_inside(m, steps) for m in moes)
+
+
 def test_one_token_requests_make_one_decode_range_each():
     eng = _llm_engine()
     rs, rep = _ranges(lambda: eng.serve(_requests(n_out=(1, 1, 1))))

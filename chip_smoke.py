@@ -75,6 +75,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain version's float32 result.  Last, each width limit that remains
    (flash D <= 128, decode D <= 256, the scan hs <= 512) must raise a
    ValueError one past it, on CUDA tensors, with no launch counted;
+   then ``[moe-experts]``: the routed-experts kernel (table row 9, no TPU
+   kernel) at grok-1's (E=8, C=4, 6144 -> 32768) and DeepSeek-V3's
+   (8 held experts, C=4, 7168 -> 2048) decode dispatch in bf16 with 0,
+   1 and 2 touched experts, within ``MOE_RTOL`` + ``MOE_ATOL_SHARE`` of
+   the plain version, every empty slot zero, two calls bit-equal, two
+   launches a call; its wrapper and the kernel alone timed beside the
+   bound (the touched experts' bytes), the plain version and the three
+   ``torch.bmm`` products; and its launches counted inside a served
+   decode (grok-1's smoke preset, graphs replayed: two a call at each MoE
+   layer of every decode step, none in its prefill of 12 slots an
+   expert);
 8. the fused tracker tick (``[fused]``): the NVR serve of phase 3 with
    ``fused_tick=True``, each tick one CUDA-graph replay, counted from
    zero: one capture, a replay a tick, and ``greedy_assign`` launches
@@ -229,8 +240,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    equal to 6 uninterrupted steps (bit for bit where the card repeated
    its gradients in 18); then ``launch.train --device cuda --preset
    smoke --steps 20 --checkpoint`` must print its round-trip line.  The
-   eight kernels' launches are counted from zero over 17-20 and must all
-   be 0: the reference's training reaches no Pallas kernel;
+   nine kernels' launches are counted from zero over 17-20 and must all
+   be 0: the reference's training reaches no Pallas kernel, and a
+   product that records a gradient keeps ``torch.bmm``;
 21. ``[mesh]``: ``launch.mesh.make_serving_mesh(1)`` is ``("cuda:0",)``,
    one shard more than there are cards raises ``ValueError``, and
    qwen3-4b's smoke decode logits inside ``mesh_context(
@@ -275,11 +287,14 @@ share of the bound,
 and, where one PyTorch call computes the same function, that call's time
 (SDPA for the two attention kernels; used for comparison only).
 
-The token and training phases launch none of the eight kernels: the
-model code computes attention with ``models.attention.sdpa`` and its
-chunked online softmax, the Mamba scan and the RWKV recurrence in plain
-tensor code, as the reference's does; ``[rwkv-model]``'s one scan launch
-is a check beside the model.
+The token and training phases launch none of the eight kernels that
+replace the reference's: the model code computes attention with
+``models.attention.sdpa`` and its chunked online softmax, the Mamba scan
+and the RWKV recurrence in plain tensor code, as the reference's does;
+``[rwkv-model]``'s one scan launch is a check beside the model.  The
+MoE families' decode (and a prefill of at most 4 slots an expert)
+launches the routed-experts kernel, which replaces none; each family's
+serve prints the launches it counted.
 
 The third-to-last line is a JSON object with one entry per kernel, the
 second-to-last the card's name and power limit, the last
@@ -350,6 +365,7 @@ from repro_torch.kernels import iou as kiou  # noqa: E402
 from repro_torch.kernels import nms as knms  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import roi as kroi  # noqa: E402
+from repro_torch.kernels import routed_experts as krouted  # noqa: E402
 from repro_torch.kernels import rwkv_scan as krwkv  # noqa: E402
 from repro_torch.serving import (DetectionEngine, EventBus,  # noqa: E402
                                  FaultSchedule, FrameRequest, JsonlSink,
@@ -466,6 +482,21 @@ FLASH_MARGIN_CASES = (
 FLASH_LARGE_LOGITS = ("qwen3-4b large logits T=S=2048 causal f32", 1, 32,
                       2048, 2048, 128, True, torch.float32)
 LARGE_LOGIT = 60.0
+# [moe-experts]: (name, E, C, d, f) of an MoE layer's decode dispatch at
+# C = 4 slots (capacity(1)): grok-1's 8 experts of 6144 -> 32768
+# (src/repro_torch/configs/grok_1_314b.py) and the 8 DeepSeek-V3 experts
+# of 7168 -> 2048 one card of an EP32 deployment holds; the experts that
+# hold a token in each case (a decode token touches k of them or fewer)
+MOE_CASES = (("grok-1 decode E=8 C=4 6144->32768 bf16", 8, 4, 6144, 32768),
+             ("deepseek-v3 decode E=8 held C=4 7168->2048 bf16", 8, 4, 7168,
+              2048))
+MOE_TOUCHED = ((), (5,), (2, 7))
+# the kernel against the plain version in bf16: each element within two
+# ulps of its own value plus 1/256 of the output's largest magnitude (the
+# float32 dot products add in other orders, so a gate or up value at a
+# rounding boundary may round to its neighbour; y rounds once more);
+# tests/test_torch_routed_experts.py holds the same
+MOE_RTOL, MOE_ATOL_SHARE = 2.0 ** -7, 2.0 ** -8
 # [train]: the example's SGD loop at its own settings (SSDConfig(),
 # batch 8, 150 steps on ETH-Sunnyday); each step's loss and parts on the
 # card within TRAIN_RTOL of the CPU run's, relative to the larger of the
@@ -1005,8 +1036,9 @@ def check_mma_zero_identity(n_tiles=512):
 
 
 def check_counters(b, s, assign_args, crop_args, uncrop_args):
-    """Each wrapper counts one launch where it launches its kernel and
-    nothing where it launches none (an empty batch)."""
+    """Each wrapper counts one launch where it launches its kernel (the
+    routed-experts wrapper two: its gate/up and down passes) and nothing
+    where it launches none (an empty batch; no expert)."""
     imgs, rois, C = crop_args
     boxes, brois, bounds, bC = uncrop_args
     x = torch.ones((2, 2, 128, 32), device=DEV)
@@ -1014,6 +1046,9 @@ def check_counters(b, s, assign_args, crop_args, uncrop_args):
     seq = torch.full((2, 2, 16, 8), 0.5, device=DEV)
     u, s0 = torch.ones((2, 8), device=DEV), torch.zeros((2, 2, 8, 8),
                                                          device=DEV)
+    xe, sw = torch.ones((2, 4, 8), device=DEV), torch.ones(8, device=DEV)
+    wu, wd = torch.ones((2, 8, 16), device=DEV), torch.ones((2, 16, 8),
+                                                            device=DEV)
     calls = lambda k: (  # noqa: E731
         knms.batched_nms_cuda(b[:k], s[:k], **NMS_KW),
         kassoc.greedy_assign_cuda(*(a[:k] for a in assign_args),
@@ -1024,16 +1059,22 @@ def check_counters(b, s, assign_args, crop_args, uncrop_args):
         kiou.iou_matrix_cuda(b[0, :k], b[1]),
         kflash.flash_attention_cuda(x[:k], x[:k], x[:k]),
         kdecode.decode_attention_cuda(x[:k, :, 0], cache[:k], cache[:k]),
-        krwkv.rwkv_scan_cuda(*(seq[:k],) * 4, u, s0[:k]))
+        krwkv.rwkv_scan_cuda(*(seq[:k],) * 4, u, s0[:k]),
+        krouted.routed_expert_ffn_cuda(xe[:k], sw[:4 * (2 if k is None
+                                                        else k)],
+                                       wu[:k], wu[:k], wd[:k]))
     ops.reset_launches()
     calls(0)
     check(set(ops.launches().values()) == {0},
           f"launch counted for an empty batch: {ops.launches()}")
     calls(None)
-    check(set(ops.launches().values()) == {1},
-          f"one launch each counted as {ops.launches()}")
-    print("[counters] empty batch: no launch counted; one call: one each "
-          f"({', '.join(ops.launches())})")
+    # the routed-experts wrapper launches its two passes a call
+    check(ops.launches() == dict({k: 1 for k in ops.launches()},
+                                 routed_experts=2),
+          f"one launch each (two for routed_experts) counted as "
+          f"{ops.launches()}")
+    print("[counters] empty batch: no launch counted; one call: one each, "
+          f"two for routed_experts ({', '.join(ops.launches())})")
 
 
 def phase_kernels(params, cfg, anchors, frames):
@@ -2758,6 +2799,161 @@ def phase_attention(profile=False):
     return launches, entries
 
 
+def moe_slots(g, E, C, d, touched):
+    """A decode's dispatch slots: each expert of ``touched`` holds a token
+    in its first slot (combine weight 0.5), every other slot is empty
+    and its row zero.  Returns (x (E, C, d) bf16, slot_w (E * C,))."""
+    slot_w = torch.zeros(E * C, device=DEV)
+    for e in touched:
+        slot_w[e * C] = 0.5
+    x = _randn(g, (E, C, d), torch.bfloat16)
+    return x * (slot_w.reshape(E, C, 1) > 0).to(x.dtype), slot_w
+
+
+def moe_bound_ms(n_touched, d, f):
+    """The least time of a call: the touched experts' three matrices
+    read once at 3.35 TB/s (the slots' rows are a few KB)."""
+    return n_touched * 3 * d * f * 2 / HBM_BYTES_PER_S * 1e3
+
+
+def phase_moe_experts():
+    """``[moe-experts]``: the routed-experts kernel (table row 9) at
+    ``MOE_CASES``' decode shapes with 0, 1 and 2 touched experts
+    (``MOE_TOUCHED``): within ``MOE_RTOL`` + ``MOE_ATOL_SHARE`` of the
+    plain version, zero on every empty slot, two calls bit-equal and
+    counted as two launches each from zero; then the wrapper and the
+    kernel alone (its two launches over fixed scratch: the device's
+    time) by CUDA events over 200 calls after 20 warm-ups, beside the
+    bound (the touched experts' bytes at 3.35 TB/s), the plain version
+    and the library yardstick (its three ``torch.bmm`` products alone,
+    which read every expert); then the launches inside a served decode
+    (``moe_served_launches``).  Returns those launches and the table's
+    entry (grok-1, two touched experts)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    launch = build.function("routed_experts", "routed_experts_launch",
+                            krouted._LAUNCH_ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    entry = None
+    for name, E, C, d, f in MOE_CASES:
+        free_cuda()
+        stacks = tuple(_randn(g, shape).mul_(shape[1] ** -0.5)
+                       .to(torch.bfloat16)
+                       for shape in ((E, d, f), (E, d, f), (E, f, d)))
+        for touched in MOE_TOUCHED:
+            x, slot_w = moe_slots(g, E, C, d, touched)
+            args = (x, slot_w, *stacks)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            got = ops.routed_expert_ffn(*args)
+            again = ops.routed_expert_ffn(*args)
+            torch.cuda.synchronize()
+            launches = ops.launches()
+            check(launches == dict({k: 0 for k in launches},
+                                   routed_experts=4),
+                  f"[moe-experts] {name}: launches {launches} for two "
+                  "calls; not two a call")
+            want = krouted.routed_expert_ffn_torch(*args).float()
+            diff = (got.float() - want).abs()
+            top = float(want.abs().max())
+            ok = bool((diff <= MOE_RTOL * want.abs()
+                       + MOE_ATOL_SHARE * top).all())
+            empty = slot_w.reshape(E, C) <= 0
+            err = float(diff.max())
+            print(f"[moe-experts] {name}, touched {list(touched)}: max "
+                  f"|kernel - plain| {err:.4e} (max |plain| {top:.4e}; "
+                  f"within {MOE_RTOL:.4g} x |plain| + {MOE_ATOL_SHARE:.4g} "
+                  f"x max: {ok}); empty slots zero: "
+                  f"{not got[empty].any()}; two calls bit-equal: "
+                  f"{torch.equal(got, again)}")
+            check(ok and not got[empty].any() and torch.equal(got, again),
+                  f"[moe-experts] {name}, touched {list(touched)}: kernel "
+                  "!= plain version")
+            ms = cuda_ms(lambda: krouted.routed_expert_ffn_cuda(*args))
+            tw = krouted.tile_cols(torch.bfloat16)
+            grid = krouted.BLOCKS_PER_SM * sms
+            part = torch.empty(grid * 4 * C * tw, device=DEV)
+            n_tk = E * (-(-f // tw) + -(-d // tw))
+            tickets = torch.zeros(n_tk, dtype=torch.int32, device=DEV)
+            h = torch.empty((E, C, f), dtype=torch.bfloat16, device=DEV)
+            y = torch.empty((E, C, d), dtype=torch.bfloat16, device=DEV)
+            ptrs = [t.data_ptr() for t in args]
+            # the tickets zeroed before each call, as the wrapper does
+            kernel_ms = cuda_ms(lambda: (tickets.zero_(), build.check(launch(
+                *ptrs, E, C, d, f, 1, grid, part.data_ptr(), part.numel(),
+                tickets.data_ptr(), n_tk, h.data_ptr(), y.data_ptr(),
+                stream), "routed_experts_launch")))
+            check(torch.equal(y, got),
+                  "[moe-experts] kernel alone != the wrapper's result")
+            plain_ms = cuda_ms(lambda: krouted.routed_expert_ffn_torch(
+                *args), iters=50, warmup=5)
+            lib_ms = cuda_ms(lambda: (torch.bmm(x, stacks[0]),
+                                      torch.bmm(x, stacks[1]),
+                                      torch.bmm(h, stacks[2])),
+                             iters=50, warmup=5)
+            bound = moe_bound_ms(len(touched), d, f)
+            share = (f"{bound / kernel_ms:.3f} of the bound, "
+                     f"{len(touched) * 6 * d * f / kernel_ms * 1e-6:.0f} "
+                     "GB/s" if touched else "nothing to read")
+            print(f"[moe-experts] {name}, touched {list(touched)}: wrapper "
+                  f"{ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, torch.bmm x3 {lib_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms (bytes); kernel {share}; grid {grid}, "
+                  f"tile {tw} columns")
+            if len(touched) == 2 and entry is None:
+                entry = dict(
+                    name="routed_experts", route="cuda",
+                    source="src/repro_torch/kernels/csrc/routed_experts.cu",
+                    replaces=None, max_abs_err=err, ms=ms,
+                    kernel_only_ms=kernel_ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by="bytes", library_ms=lib_ms,
+                    shape=f"{name}, 2 touched")
+        del stacks, args, x, slot_w, got, again, want, diff, h, y, part
+    free_cuda()
+    return moe_served_launches(), entry
+
+
+def moe_served_launches():
+    """The kernel's launches inside a served decode: grok-1's smoke
+    preset in bf16 through ``ServingEngine`` on the card (one replica;
+    the warm-up captures the decode graphs), 2 requests of
+    ``LLM_PROMPT`` tokens and ``LLM_NEW`` new ones, counted from zero
+    over the serve: two a call at each MoE layer in every decode step,
+    the graphs' replays counted by ``MoEGraph``, and none in a prefill
+    (C = capacity(``LLM_PROMPT``) = 12 takes ``torch.bmm``); the tokens
+    equal to the eager decode's (``eager_serve``)."""
+    cfg = get_config("grok-1-314b", preset="smoke").replace(
+        dtype="bfloat16", param_dtype="bfloat16")
+    check(llm_moe.capacity(LLM_PROMPT, cfg.moe) > krouted.MAX_SLOTS,
+          "[moe-experts] the served prefill is decode-shaped")
+    params = init_model(cfg, torch.Generator(device=DEV).manual_seed(SEED),
+                        device=DEV)
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size - 1, LLM_PROMPT)
+                    .astype(np.int32), LLM_NEW, 0.0) for i in range(2)]
+    eng = ServingEngine(cfg, params=params, n_replicas=1,
+                        cache_len=LLM_CACHE_LEN, device=DEV)
+    eng.warmup(LLM_PROMPT)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    n_moe = sum(spec.ffn == "moe" for spec in cfg.layer_specs())
+    want = 2 * n_moe * len(reqs) * LLM_NEW
+    eager = eager_serve(cfg, params, reqs)
+    same = all(eager[r.rid] == r.tokens.tolist() for r in out["responses"])
+    print(f"[moe-experts] served decode (grok-1 smoke, bf16, {n_moe} MoE "
+          f"layers, {len(reqs)} requests of {LLM_PROMPT} + {LLM_NEW} "
+          f"tokens): launches {launches}, {want} expected (2 a call, "
+          f"{LLM_NEW} decode steps a request, none in a prefill); tokens "
+          f"equal to the eager decode's: {same}")
+    check(launches == dict({k: 0 for k in launches}, routed_experts=want)
+          and same, f"[moe-experts] served decode: launches {launches}, "
+          f"tokens equal {same}")
+    return launches
+
+
 def flash_f64(q, k, v):
     """Causal attention in float64, a head at a time: the function with
     no float32 rounding, to measure both float32 versions against."""
@@ -3592,11 +3788,18 @@ def serve_llm(tag, cfg, params):
     eng = ServingEngine(cfg, params=params, n_replicas=4, scheduler="fcfs",
                         cache_len=LLM_CACHE_LEN, device=DEV)
     eng.warmup(LLM_PROMPT)
+    ops.reset_launches()
     t0 = time.perf_counter()
     out = eng.serve(reqs)
     wall = time.perf_counter() - t0
     log = None
     if cfg.moe is not None:
+        n = ops.launches()["routed_experts"]
+        print(f"[{tag}] routed-experts launches counted over the timed "
+              f"serve: {n}, {n / (LLM_REQUESTS * LLM_NEW):.4g} a "
+              f"generated token ({LLM_REQUESTS} requests of {LLM_NEW}; "
+              f"a prefill's capacity {llm_moe.capacity(LLM_PROMPT, cfg.moe)}"
+              f" slots an expert)")
         with moe_log() as log:
             logged = eng.serve(reqs)
         with moe_log() as eager_log:
@@ -3655,7 +3858,8 @@ def phase_family(arch, profile=False):
     against a fresh prefill at ``FAMILY_BF16_TOL`` with capacity lifted
     to E / k, the family's planted faults above it; for rwkv6-3b the
     ``[rwkv-model]`` check on its layer 0.  Returns the launches of the
-    check (the model itself launches none of the eight kernels)."""
+    check (the model itself launches none of the eight kernels that
+    replace the reference's)."""
     tag = "llm-" + arch.split("-")[0].removesuffix("6")
     cfg = cut_config(arch)
     free_cuda()
@@ -4503,6 +4707,7 @@ def main() -> int:
     by_path["attention"], attn_entries = phase_attention(
         profile="--profile" in sys.argv[1:])
     entries.update(attn_entries)
+    by_path["moe_experts"], entries["routed_experts"] = phase_moe_experts()
     by_path["fused"] = phase_fused(params, cfg, frames,
                                    profile="--profile" in sys.argv[1:])
     by_path["parallel"] = phase_parallel()
@@ -4551,7 +4756,7 @@ def main() -> int:
         e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
         check(e["launches"] > 0, f"{k} was never launched on a main path")
-    check(len(entries) == 8, f"kernels line has {len(entries)} entries")
+    check(len(entries) == 9, f"kernels line has {len(entries)} entries")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(gpu_line())

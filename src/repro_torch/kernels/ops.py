@@ -19,6 +19,7 @@ from . import association, iou, roi
 from . import decode_attention as kdecode
 from . import flash_attention as kflash
 from . import nms as knms
+from . import routed_experts as krouted
 from . import rwkv_scan as krwkv
 from .association import greedy_assign_cuda, greedy_assign_torch
 from .decode_attention import decode_attention_cuda, decode_attention_torch
@@ -27,6 +28,7 @@ from .iou import iou_matrix_cuda, iou_matrix_torch
 from .nms import batched_nms_cuda, batched_nms_torch
 from .roi import (crop_resize_cuda, crop_resize_torch, uncrop_boxes_cuda,
                   uncrop_boxes_torch)
+from .routed_experts import routed_expert_ffn_cuda, routed_expert_ffn_torch
 from .rwkv_scan import CHUNK_T, rwkv_scan_cuda, rwkv_scan_torch
 
 
@@ -38,7 +40,8 @@ _COUNTERS = {"batched_nms": (knms, "LAUNCHES"),
              "iou_matrix": (iou, "LAUNCHES"),
              "flash_attention": (kflash, "LAUNCHES"),
              "decode_attention": (kdecode, "LAUNCHES"),
-             "rwkv_scan": (krwkv, "LAUNCHES")}
+             "rwkv_scan": (krwkv, "LAUNCHES"),
+             "routed_experts": (krouted, "LAUNCHES")}
 
 
 def launches() -> Dict[str, int]:
@@ -189,3 +192,15 @@ def rwkv_scan(r, k, v, w, u, s0, *, chunk_t=CHUNK_T):
     if r.device.type == "cpu":
         return rwkv_scan_torch(r, k, v, w, u, s0, chunk_t=chunk_t)
     return rwkv_scan_cuda(r, k, v, w, u, s0, chunk_t=chunk_t)
+
+
+def routed_expert_ffn(x_disp, slot_w, w_gate, w_up, w_down):
+    """An MoE layer's expert products over its dispatch slots: x_disp (E,
+    C, d) -> (E, C, d), ``slot_w`` (E * C,) the slots' combine weights (a
+    slot holds a token where it is > 0).  On a card only the experts
+    with an occupied slot are read, C <= ``routed_experts.MAX_SLOTS``.
+    See ``kernels.routed_experts``."""
+    args = (x_disp, slot_w, w_gate, w_up, w_down)
+    if x_disp.device.type == "cpu":
+        return routed_expert_ffn_torch(*args)
+    return routed_expert_ffn_cuda(*args)

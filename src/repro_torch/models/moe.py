@@ -5,7 +5,12 @@ Static-shape capacity dispatch, as in the reference: tokens are sorted by
 expert id (stably, so the order inside an expert decides which tokens
 overflow), the first ``capacity`` tokens per expert are gathered into a
 dense (E, C, d) block, every expert runs as one batched product over its
-C slots, and the results are added back with their router weights.
+C slots, and the results are added back with their router weights.  On
+a card, at decode's 4 slots an expert and with no gradient to record,
+the expert products go through the routed-experts kernel instead, which
+reads the weights of only the experts with an occupied slot
+(``_expert_ffn``, ``kernels.routed_experts``): the same work, since an
+empty slot's zero row is multiplied by a combine weight of 0.
 
 Two dispatch scopes (MoEConfig.dispatch):
   "global"  — one token pool over the whole batch;
@@ -49,6 +54,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops, routed_experts
 from ..obs.trace import span
 from ..sharding.context import constrain
 from . import layers
@@ -222,11 +228,29 @@ def _dispatch_tables(w, idx, T: int, E: int, k: int, C: int, first=None):
     return slot_tok, slot_w, pair_slot.reshape(T, k)
 
 
-def _expert_ffn(we, x_disp):
-    """x_disp: (E, C, d) -> (E, C, d), one batched product per matrix."""
-    gate = F.silu(torch.bmm(x_disp, we["w_gate"]))
-    up = torch.bmm(x_disp, we["w_up"])
-    return torch.bmm(gate * up, we["w_down"])
+def _decode_shaped(x_disp, we) -> bool:
+    """Whether the expert products take the routed-experts kernel
+    (``kernels.ops.routed_expert_ffn``), which reads only the experts
+    with an occupied slot: CUDA tensors (the CPU's and the cost model's
+    meta tensors take the plain version; ``ops`` never falls back), at
+    most ``MAX_SLOTS`` slots an expert (decode: the products are bound by
+    the weights' bytes) and no gradient to record.  Anything else,
+    prefill's tens to thousands of slots an expert and training, takes
+    the plain version's ``torch.bmm``."""
+    return (x_disp.is_cuda and x_disp.shape[1] <= routed_experts.MAX_SLOTS
+            and not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x_disp, *we.values()))))
+
+
+def _expert_ffn(we, x_disp, slot_w):
+    """x_disp: (E, C, d) -> (E, C, d), the expert products over the
+    dispatch slots, ``slot_w`` (E * C,) their combine weights: by the
+    routed-experts kernel where ``_decode_shaped``, else by the plain
+    version, one batched product per matrix."""
+    args = (x_disp, slot_w, we["w_gate"], we["w_up"], we["w_down"])
+    if _decode_shaped(x_disp, we):
+        return ops.routed_expert_ffn(*args)
+    return routed_experts.routed_expert_ffn_torch(*args)
 
 
 def _moe_routed(p, m: MoEConfig, x_flat, w, idx, C):
@@ -240,7 +264,7 @@ def _moe_routed(p, m: MoEConfig, x_flat, w, idx, C):
     # a gather whose backward adds in a fixed order (layers.apply_embedding)
     x_disp = F.embedding(slot_tok, x_flat).reshape(E, C, d) * (
         slot_w.reshape(E, C, 1) > 0).to(x_flat.dtype)
-    y = _expert_ffn(p["experts"], x_disp)
+    y = _expert_ffn(p["experts"], x_disp, slot_w)
     y_flat = y.reshape(E * C, d) * slot_w[:, None].to(y.dtype)
     # each token's choices taken in ascending expert order; a dropped
     # pair's slot E*C (and a pair held elsewhere) reads a zero row

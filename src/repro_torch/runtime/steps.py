@@ -18,6 +18,7 @@ from typing import Any, Dict
 import torch
 
 from ..device import cudnn_deterministic, ieee_float32
+from ..kernels import ops
 from ..models import init_cache, init_model, model_apply, moe
 from ..models.config import ModelConfig
 from ..models.layers import cross_entropy
@@ -241,10 +242,17 @@ class MoEGraph:
     """What follows an MoE layer's router in ``GraphedDecode``, as
     ``apply_moe``'s ``experts``: each call copies the router's ``(w,
     idx)`` into fixed inputs, then runs ``moe.moe_experts`` on them, or,
-    once captured, replays it.  ``out`` is the captured output."""
+    once captured, replays it.  ``out`` is the captured output.
+
+    A replay calls no kernel wrapper: the launches the wrappers counted
+    while the graph was captured ran nowhere, so they are taken back and
+    kept in ``captured``, and every replay adds them
+    (``kernels.ops.add_launches``), as ``serving.pipeline.TickGraph``
+    does."""
 
     def __init__(self):
         self.choices = self.graph = self.out = None
+        self.captured = {}
 
     def __call__(self, p, cfg, x, choices):
         if self.choices is None:
@@ -256,12 +264,20 @@ class MoEGraph:
         if self.graph is None:
             return moe.moe_experts(p, cfg, x, self.choices)
         self.graph.replay()
+        ops.add_launches(self.captured)
         return self.out
 
     def capture(self, p, cfg, x, pool):
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool):
-            self.out = moe.moe_experts(p, cfg, x, self.choices)
+        before = ops.launches()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                self.out = moe.moe_experts(p, cfg, x, self.choices)
+        finally:
+            self.captured = {k: n - before[k]
+                             for k, n in ops.launches().items()
+                             if n != before[k]}
+            ops.add_launches(self.captured, times=-1)
         self.graph = graph
         return self.out
 

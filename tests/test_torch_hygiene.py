@@ -376,6 +376,14 @@ def _rwkv_args(device):
             torch.zeros((1, 2, 8, 8), device=device))
 
 
+def _routed_args(device):
+    return (torch.zeros((2, 4, 8), device=device),
+            torch.zeros((8,), device=device),
+            torch.zeros((2, 8, 16), device=device),
+            torch.zeros((2, 8, 16), device=device),
+            torch.zeros((2, 16, 8), device=device))
+
+
 NEW_CALLS = {"iou_matrix": (_iou_args, {}),
              "flash_attention": (_flash_args, {}),
              "decode_attention": (_decode_args, {}),
@@ -387,6 +395,8 @@ NEW_CALLS = {"iou_matrix": (_iou_args, {}),
 
 def _call(kernel, device):
     """One call of ``ops.<kernel>`` on small tensors on ``device``."""
+    if kernel == "routed_experts":
+        return ops.routed_expert_ffn(*_routed_args(device))
     if kernel in NEW_CALLS:
         make, kw = NEW_CALLS[kernel]
         return getattr(ops, kernel)(*make(device), **kw)
@@ -401,10 +411,12 @@ def _call(kernel, device):
 
 
 KERNELS = ["batched_nms", "greedy_assign", "crop_resize", "uncrop_boxes",
-           "iou_matrix", "flash_attention", "decode_attention", "rwkv_scan"]
+           "iou_matrix", "flash_attention", "decode_attention", "rwkv_scan",
+           "routed_experts"]
 PLAIN = ["batched_nms_torch", "greedy_assign_torch", "crop_resize_torch",
          "uncrop_boxes_torch", "iou_matrix_torch", "flash_attention_torch",
-         "decode_attention_torch", "rwkv_scan_torch"]
+         "decode_attention_torch", "rwkv_scan_torch",
+         "routed_expert_ffn_torch"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS + ["nms_serial"])
@@ -452,12 +464,13 @@ def test_roi_wrappers_refuse_non_cuda_tensors(monkeypatch, kernel):
 def test_reset_launches_zeroes_every_counter(monkeypatch):
     from repro_torch.kernels import (association, decode_attention,
                                      flash_attention, iou, nms, roi,
-                                     rwkv_scan)
+                                     routed_experts, rwkv_scan)
     for mod, attr in ((nms, "LAUNCHES"), (association, "LAUNCHES"),
                       (roi, "CROP_LAUNCHES"), (roi, "UNCROP_LAUNCHES"),
                       (iou, "LAUNCHES"), (flash_attention, "LAUNCHES"),
                       (decode_attention, "LAUNCHES"),
-                      (rwkv_scan, "LAUNCHES")):
+                      (rwkv_scan, "LAUNCHES"),
+                      (routed_experts, "LAUNCHES")):
         monkeypatch.setattr(mod, attr, 7)
     assert set(ops.launches()) == set(KERNELS)
     assert set(ops.launches().values()) == {7}
@@ -494,6 +507,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     assert _call("decode_attention", "cpu").shape == (2, 4, 32)
     out, state = _call("rwkv_scan", "cpu")
     assert out.shape == (1, 2, 16, 8) and state.shape == (1, 2, 8, 8)
+    assert _call("routed_experts", "cpu").shape == (2, 4, 8)
     keep, valid = _call("nms_serial", "cpu")
     assert keep.shape == (4,) and valid.shape == (4,)
     assert ops.launches() == before
@@ -518,7 +532,8 @@ def test_library_names_track_source_and_flags():
 WRAPPERS = {"iou_matrix_cuda": ("iou", _iou_args, {}),
             "flash_attention_cuda": ("flash_attention", _flash_args, {}),
             "decode_attention_cuda": ("decode_attention", _decode_args, {}),
-            "rwkv_scan_cuda": ("rwkv_scan", _rwkv_args, {})}
+            "rwkv_scan_cuda": ("rwkv_scan", _rwkv_args, {}),
+            "routed_expert_ffn_cuda": ("routed_experts", _routed_args, {})}
 
 
 @pytest.mark.parametrize("wrapper", sorted(WRAPPERS))

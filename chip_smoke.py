@@ -86,18 +86,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    decode (grok-1's smoke preset, graphs replayed: two a call at each MoE
    layer of every decode step, none in its prefill of 12 slots an
    expert);
-8. the fused tracker tick (``[fused]``): the NVR serve of phase 3 with
-   ``fused_tick=True``, each tick one CUDA-graph replay, counted from
-   zero: one capture, a replay a tick, and ``greedy_assign`` launches
-   equal to (1 warm-up + the replays) x the launches captured; then
-   three staged and three fused serves in turns, every report equal to
-   the first fused one exactly, and the tracker's host wall
-   (``stage_ms_track``) of each mode; ``pipeline.fused_window`` (K=8,
-   B=4, D=32) equal to the staged chain on the card bit for bit in one
-   replay, timed against K staged ticks that return the same outputs to
-   the host; under ``--profile``, the tracker stage of the serve replayed
-   staged and fused under the profiler (copies and device events a
-   tick);
+8. the fused tracker tick (``[fused]``), the only tick the engines
+   have: the NVR serve of phase 3, each tick one CUDA-graph replay,
+   counted from zero: one capture, a replay a tick, and
+   ``greedy_assign`` launches equal to (1 warm-up + the replays) x the
+   launches captured; its report equal exactly to the same serve with
+   each tick run by the staged chain of the ``tracking`` functions on
+   the card (``staged_chain``) and to a second fused serve, and the
+   tracker's host wall (``stage_ms_track``) of each;
+   ``pipeline.fused_window`` (K=8, B=4, D=32) equal to the staged chain
+   on the card bit for bit in one replay, timed against K staged-chain
+   ticks that return the same outputs to the host; under ``--profile``,
+   the tracker stage of the serve replayed under the profiler (copies
+   and device events a tick);
 9. the paper's pipeline (``[parallel]``): ``ParallelDetector(
    "ETH-Sunnyday", "yolov3", ["ncs2"] * n).run(track=True)`` for n = 1..7
    on the card, counted from zero (one assignment launch a processed
@@ -127,14 +128,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``make_skewed_streams``, 2 shards, 0.2 s epochs, a migration); a
    shard kill and a replica kill under ``Watchdog()`` (a restart, lost
    frames, retries); each against ``device="cpu"`` (``close_report``,
-   floats within ``FORWARD_ATOL``), and the rebalancing serve again with
-   the fused tick, equal to the staged one exactly (graphs printed).
-   Counted from zero for each serve: NMS launches = the recorder's
-   micro-batches over shards and epochs; staged assignment launches =
-   detection ticks (``TickPipeline.tick`` calls), fused ones = (1
-   warm-up + replays) x captured a graph; ticks + coasts =
-   ``tracker_launches``; the host wall and the valid detections a
-   detected frame of each serve printed;
+   floats within ``FORWARD_ATOL``), and the rebalancing serve equal
+   exactly to the same serve with its ticks run by the staged chain on
+   the card. Counted from zero for each serve: NMS launches = the
+   recorder's micro-batches over shards and epochs; assignment launches
+   = (1 warm-up + replays) x captured a graph (graphs printed); ticks +
+   coasts = ``tracker_launches``; the host wall and the valid detections
+   a detected frame of each serve printed;
 12. after the profile passes, the three IoU kernels on boxes with NaN,
    +-inf and -0.0 coordinates (``[nan]``): the IoU matrix, NMS (the
    example of a NaN box beside two overlapping ones, and mini frames
@@ -268,8 +268,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    hubert-xlarge's decode pairs are the reference's skip, every
    architecture's ``n_params`` and the phase's wall time are printed.
 
-``--profile`` adds one more serve of each path (the NVR serve staged and
-fused) under ``torch.profiler``
+``--profile`` adds one more serve of each path under ``torch.profiler``
 and prints the device time by kernel and the device's busy share (and
 the time a launch of the NMS, assignment and ROI kernels, with the device
 op run just before each uncrop, which must not be a copy), and the
@@ -403,7 +402,6 @@ CROP_INDEX_FLOPS = 9            # add, div, sub, mul, add, mul, floor, 2 clamp
 UNCROP_FLOPS = 18               # 2 sub + 4 x (div, mul, add, mul)
 FORWARD_ATOL = 1e-4             # cuDNN vs CPU conv sums; Kalman ULPs
 FUSED_K = 8                     # the fused window: (K, B, D) = (8, 4, 32)
-TIMED_SERVES = 3                # staged and fused NVR serves, in turns
 MAP_ATOL = 1e-6                 # map_tracked, cuda vs cpu (Kalman ULPs)
 TABLE_IV_N = range(1, 8)        # the paper's Table IV: n = 1..7 NCS2s
 # the same frames at micro_batch 1 and 5: conv sums in another order
@@ -1379,14 +1377,13 @@ def device_ms_a_call(label, calls, reps=20):
     return out
 
 
-def nvr_engine(params, cfg, fused=False, recorder=None):
+def nvr_engine(params, cfg, recorder=None):
     """The NVR serve's engine: a pinned service time below the arrival
     rate (the paper's drop regime, so the tracker both associates and
-    interpolates); ``fused`` runs the fused tracker tick."""
+    interpolates)."""
     return DetectionEngine(cfg=cfg, params=params, n_replicas=2,
                            service_time=SERVICE_S, recorder=recorder,
-                           track_and_interpolate=True, fused_tick=fused,
-                           device=DEV)
+                           track_and_interpolate=True, device=DEV)
 
 
 def phase_serve(params, cfg, frames):
@@ -1808,18 +1805,58 @@ def track_ms(rec):
     return sum(v for _, v in rec.series.get("stage_ms_track/0", []))
 
 
-def phase_fused(params, cfg, frames, profile=False):
-    """The NVR serve with the fused tick against the staged serve, the
-    graphs' launch accounting, and the fused window against the staged
-    chain on the card."""
-    tpipe.clear_tick_graphs()
+class StagedTicks(tpipe.TickPipeline):
+    """``TickPipeline`` with each tick run by the staged chain of the
+    ``tracking`` functions on the pipeline's device: ``trk.step`` (or
+    ``trk.coast`` on a detection-free tick), then ``trk.output``.  What
+    a serve's fused ticks are held to bit for bit."""
+
+    def tick(self, state, boxes, scores, classes, valid):
+        self.launches += 1
+        state, tid = trk.step(
+            state, *(torch.from_numpy(np.asarray(a)).to(self.device)
+                     for a in (boxes, scores, classes, valid)), self.cfg)
+        return state, tid.cpu().numpy(), self._output(state)
+
+    def coast(self, state, det_width=1):
+        self.launches += 1
+        state = trk.coast(state, self.cfg)
+        return state, self._output(state)
+
+    def _output(self, state):
+        return tuple(a.cpu().numpy() for a in trk.output(state, self.cfg))
+
+
+@contextlib.contextmanager
+def staged_chain():
+    """Engines serving inside run their tracker ticks as ``StagedTicks``."""
+    from repro_torch.serving import engine as eng_mod
+    fused = eng_mod.TickPipeline
+    eng_mod.TickPipeline = StagedTicks
+    try:
+        yield
+    finally:
+        eng_mod.TickPipeline = fused
+
+
+def timed_serve(params, cfg, frames):
+    """One NVR serve on the card: (report, its tracker host wall ms, the
+    serve's launches counted from zero)."""
     rec = TraceRecorder()
-    eng = nvr_engine(params, cfg, fused=True, recorder=rec)
+    eng = nvr_engine(params, cfg, recorder=rec)
     eng.warmup()
     ops.reset_launches()
     rep = eng.serve(frames)
     torch.cuda.synchronize()
-    launches = ops.launches()
+    return rep, track_ms(rec), ops.launches()
+
+
+def phase_fused(params, cfg, frames, profile=False):
+    """The NVR serve's fused ticks: the graphs' launch accounting, the
+    report against the staged chain's on the card, and the fused window
+    against the staged chain."""
+    tpipe.clear_tick_graphs()
+    rep, first_ms, launches = timed_serve(params, cfg, frames)
     graphs = tpipe.tick_graphs()
     ticks = rep["tracker_ticks"]
     check(len(graphs) == 1, f"fused serve captured {len(graphs)} graphs")
@@ -1841,29 +1878,18 @@ def phase_fused(params, cfg, frames, profile=False):
     check(launches["batched_nms"] > 0, "NMS kernel never launched")
     check(rep["coverage"] == 1.0 and rep["interpolated"] > 0,
           "fused serve: coverage != 1.0 or nothing interpolated")
-    walls = {"staged": [], "fused": []}
-    for _ in range(TIMED_SERVES):
-        for mode in ("staged", "fused"):
-            r_rec = TraceRecorder()
-            e = nvr_engine(params, cfg, fused=mode == "fused",
-                           recorder=r_rec)
-            e.warmup()
-            r = e.serve(frames)
-            torch.cuda.synchronize()
-            walls[mode].append(track_ms(r_rec))
-            close_report(r, rep, f"NVR {mode} serve vs the fused one", 0.0)
+    with staged_chain():
+        chain, chain_ms, _ = timed_serve(params, cfg, frames)
+    close_report(chain, rep, "NVR serve: staged chain vs fused ticks", 0.0)
+    again, again_ms, _ = timed_serve(params, cfg, frames)
+    close_report(again, rep, "NVR serve: a second fused serve", 0.0)
     check(len(tpipe.tick_graphs()) == 1, "a later fused serve recaptured")
-    med = {m: float(np.median(v)) for m, v in walls.items()}
-    print(f"[fused] {2 * TIMED_SERVES} more serves, staged and fused in "
-          f"turns: every report equal to the fused one exactly")
-    print(f"[fused] tracker host wall (stage_ms_track, {ticks} ticks), "
-          f"median of {TIMED_SERVES}: staged {med['staged']:.2f} ms "
-          f"({', '.join(f'{v:.2f}' for v in walls['staged'])}), fused "
-          f"{med['fused']:.2f} ms "
-          f"({', '.join(f'{v:.2f}' for v in walls['fused'])}); first "
-          f"fused serve with its capture {track_ms(rec):.2f} ms; "
-          f"{med['staged'] / ticks:.3f} against {med['fused'] / ticks:.3f}"
-          f" ms a tick")
+    print(f"[fused] report == the staged chain's serve on the card and a "
+          f"second fused serve's, exactly; tracker host wall "
+          f"(stage_ms_track, {ticks} ticks): fused {first_ms:.2f} ms with "
+          f"its capture, {again_ms:.2f} ms replayed ({again_ms / ticks:.3f}"
+          f" ms a tick); staged chain {chain_ms:.2f} ms "
+          f"({chain_ms / ticks:.3f} ms a tick)")
     fused_window_check()
     if profile:
         profile_tracker_stage(params, cfg, frames, rep)
@@ -1902,14 +1928,15 @@ def fused_window_check():
     print(f"[fused] fused_window K={K} B={B} D={D}: one replay, det_tid, "
           f"outputs and final table equal to the staged chain bit for bit;"
           f" a replay launches {gw[0].captured}")
-    pipe = tpipe.TickPipeline(tcfg, device=DEV)
-    held = {"staged": pipe.seed(range(B)), "window": wstate}
+    held = {"staged": trk.init_state(B, tcfg, device=DEV), "window": wstate}
 
     def staged_ticks():
         st = held["staged"]
         for t in ticks:
-            st, _, _ = pipe.tick(st, *t)
-            [a.cpu().numpy() for a in pipe.output(st)]
+            st, tid = trk.step(st, *(torch.from_numpy(a).to(DEV)
+                                     for a in t), tcfg)
+            tid.cpu().numpy()
+            [a.cpu().numpy() for a in trk.output(st, tcfg)]
         held["staged"] = st
 
     def window():
@@ -1925,34 +1952,33 @@ def fused_window_check():
 
 def profile_tracker_stage(params, cfg, frames, rep):
     """The fused serve's tracker stage (``_interpolate`` over its
-    detections) replayed staged and fused under ``torch.profiler``:
-    copies, device events and device time a tick."""
+    detections) replayed under ``torch.profiler``: copies, device
+    events and device time a tick."""
     from torch.profiler import ProfilerActivity, profile
     det = [r for r in rep["responses"] if not r.interpolated]
     seq_of = {r.rid: r.seq for r in rep["responses"]}
     frames = sorted(frames, key=lambda f: f.t_arrival)
     ticks = rep["tracker_ticks"]
-    for mode in ("staged", "fused"):
-        eng = nvr_engine(params, cfg, fused=mode == "fused")
-        eng._interpolate(frames, det, seq_of, {})       # warm
+    eng = nvr_engine(params, cfg)
+    eng._interpolate(frames, det, seq_of, {})       # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._interpolate(frames, det, seq_of, {})
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng._interpolate(frames, det, seq_of, {})
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = _device_rows(prof)
-        cp = copies(rows)
-        busy = sum(r[0] for r in rows) / 1e3
-        print(f"[profile track-{mode}] {ticks} ticks: wall {wall_ms:.2f} ms "
-              f"(profiled), device busy {busy:.3f} ms, "
-              f"{sum(r[1] for r in rows) / ticks:.1f} device events a tick;"
-              f" a tick: DtoH {cp['DtoH'] / ticks:.2f}, HtoD "
-              f"{cp['HtoD'] / ticks:.2f}, DtoD {cp['DtoD'] / ticks:.2f}")
-        for dev_us, count, key in rows[:6]:
-            print(f"[profile track-{mode}] {dev_us / 1e3:9.3f} ms "
-                  f"{count:6d}x  {key[:80]}")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    cp = copies(rows)
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"[profile track] {ticks} ticks: wall {wall_ms:.2f} ms "
+          f"(profiled), device busy {busy:.3f} ms, "
+          f"{sum(r[1] for r in rows) / ticks:.1f} device events a tick;"
+          f" a tick: DtoH {cp['DtoH'] / ticks:.2f}, HtoD "
+          f"{cp['HtoD'] / ticks:.2f}, DtoD {cp['DtoD'] / ticks:.2f}")
+    for dev_us, count, key in rows[:6]:
+        print(f"[profile track] {dev_us / 1e3:9.3f} ms "
+              f"{count:6d}x  {key[:80]}")
 
 
 def phase_parallel():
@@ -2179,9 +2205,8 @@ def profile_train(params, cfg, steps=20):
 
 # ------------------------------------------------- sharded serving (PR 20)
 class TickCount:
-    """Counts ``TickPipeline.tick`` (a detection tick: one tracker step,
-    one assignment launch when staged) and ``coast`` calls while
-    installed."""
+    """Counts ``TickPipeline.tick`` (a detection tick) and ``coast``
+    calls while installed."""
 
     def __init__(self):
         self.n = {"tick": 0, "coast": 0}
@@ -2210,16 +2235,14 @@ def sharded_engine(params, cfg, device, **kw):
                                   **kw)
 
 
-def sharded_serve(label, params, cfg, frames, fused=False, **kw):
+def sharded_serve(label, params, cfg, frames, **kw):
     """One sharded serve on the card, its launch accounting against the
-    recorder's micro-batches and the tracker's ticks, and its host wall.
-    Returns (report, launches)."""
+    recorder's micro-batches and the tracker's ticks' graphs, and its
+    host wall.  Returns (report, launches)."""
     rec = TraceRecorder()
-    eng = sharded_engine(params, cfg, DEV, recorder=rec, fused_tick=fused,
-                         **kw)
+    eng = sharded_engine(params, cfg, DEV, recorder=rec, **kw)
     eng.warmup()
-    if fused:
-        tpipe.clear_tick_graphs()
+    tpipe.clear_tick_graphs()
     ops.reset_launches()
     with TickCount() as tc:
         t0 = time.perf_counter()
@@ -2253,22 +2276,17 @@ def sharded_serve(label, params, cfg, frames, fused=False, **kw):
     check(tc.n["tick"] + tc.n["coast"] == rep["tracker_launches"] > 0,
           f"{label}: ticks {tc.n} != tracker_launches "
           f"{rep['tracker_launches']}")
-    if fused:
-        graphs = tpipe.tick_graphs()
-        want = sum((1 + g.replays) * g.captured.get("greedy_assign", 0)
-                   for g in graphs)
-        print(f"[sharded] {label}: {len(graphs)} graphs captured (K, B, D)"
-              f" = {sorted(g.shape for g in graphs)}, "
-              f"{sum(g.replays for g in graphs)} replays")
-        check(sum(g.replays for g in graphs) == rep["tracker_launches"],
-              f"{label}: graph replays != tracker ticks")
-        check(launches["greedy_assign"] == want,
-              f"{label}: assignment launches {launches['greedy_assign']} "
-              f"!= warm-ups + replays x captured ({want})")
-    else:
-        check(launches["greedy_assign"] == tc.n["tick"],
-              f"{label}: assignment launches {launches['greedy_assign']} "
-              f"!= detection ticks {tc.n['tick']}")
+    graphs = tpipe.tick_graphs()
+    want = sum((1 + g.replays) * g.captured.get("greedy_assign", 0)
+               for g in graphs)
+    print(f"[sharded] {label}: {len(graphs)} graphs captured (K, B, D)"
+          f" = {sorted(g.shape for g in graphs)}, "
+          f"{sum(g.replays for g in graphs)} replays")
+    check(sum(g.replays for g in graphs) == rep["tracker_launches"],
+          f"{label}: graph replays != tracker ticks")
+    check(launches["greedy_assign"] == want,
+          f"{label}: assignment launches {launches['greedy_assign']} "
+          f"!= warm-ups + replays x captured ({want})")
     return rep, launches
 
 
@@ -2276,9 +2294,9 @@ def phase_sharded(params, cfg):
     """``ShardedDetectionEngine`` on the card with the trained mini-SSD:
     static 1, 2 and 4 shards with and without a one-device mesh,
     rebalancing on the skewed trace, a shard kill and a replica kill
-    under the watchdog, and the rebalancing serve with the fused tick;
-    every serve against ``device="cpu"``.  Returns the launches summed
-    over the serves."""
+    under the watchdog, every serve against ``device="cpu"``, and the
+    rebalancing serve against the staged chain's on the card.  Returns
+    the launches summed over the serves."""
     total = {k: 0 for k in ops.launches()}
 
     def add(launches):
@@ -2344,12 +2362,12 @@ def phase_sharded(params, cfg):
           f"{frep['recovered_coverage']}, retries {frep['retries']}, "
           f"failovers {frep['failovers']}, migrations "
           f"{frep['migrations']}; cuda == cpu")
-    fused, launches = sharded_serve("rebalance, skewed, fused tick",
-                                    params, cfg, skewed, fused=True, **kw)
-    add(launches)
-    close_report(fused, steal, "sharded rebalance fused vs staged", 0.0)
-    print("[sharded] fused tick: report == the staged rebalancing serve "
-          "exactly")
+    with staged_chain():
+        chain = sharded_engine(params, cfg, DEV, **kw).serve(skewed)
+    close_report(steal, chain, "sharded rebalance: fused ticks vs the "
+                 "staged chain", 0.0)
+    print("[sharded] rebalance: report == the same serve with its ticks run "
+          "by the staged chain on the card, exactly")
     return total
 
 
@@ -3028,7 +3046,7 @@ def check_width_limits():
 def _daemon_engine(params, cfg, device, recorder):
     return sharded_engine(params, cfg, device, n_shards=2, rebalance=True,
                           epoch_s=SHARD_EPOCH_S, supervisor=Watchdog(),
-                          fused_tick=True, recorder=recorder)
+                          recorder=recorder)
 
 
 def segment_cameras(events):
@@ -4627,6 +4645,7 @@ def phase_examples():
     mods = {name: load_by_path(ROOT / "examples" / name)
             for name in EXAMPLES}
     got, ms = {}, {}
+    tpipe.clear_tick_graphs()
     ops.reset_launches()
     for name, mod in mods.items():
         t0 = time.perf_counter()
@@ -4635,15 +4654,23 @@ def phase_examples():
         ms[name] = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     launches = ops.launches()
+    graphs = tpipe.tick_graphs()
+    ticks = sum((1 + g.replays) * g.captured.get("greedy_assign", 0)
+                for g in graphs)
     for name, mod in mods.items():
         want = run_quietly(mod.main, ["--device", "cpu"])
         close_report(got[name], want, f"[examples] {name}", EXAMPLE_ATOL,
                      EXAMPLE_RTOL, nan_equal=True)
         print(f"[examples] {name}: cuda == cpu ({ms[name]:.0f} ms host "
               f"wall on cuda)")
-    print(f"[examples] launches over the four on cuda: {launches}")
+    print(f"[examples] launches over the four on cuda: {launches}; "
+          f"{len(graphs)} tick graphs, {sum(g.replays for g in graphs)} "
+          f"replays")
     check(launches["batched_nms"] > 0 and launches["greedy_assign"] > 0,
           f"[examples] NMS or assignment never launched: {launches}")
+    check(launches["greedy_assign"] == ticks,
+          f"[examples] assignment launches {launches['greedy_assign']} != "
+          f"warm-ups + replays x captured ({ticks})")
     return launches
 
 
@@ -4717,8 +4744,6 @@ def main() -> int:
     by_path["daemon"] = phase_daemon(trained, cfg)
     if "--profile" in sys.argv[1:]:
         phase_profile("nvr", nvr_engine(params, cfg), frames)
-        phase_profile("nvr-fused", nvr_engine(params, cfg, fused=True),
-                      frames)
         phase_profile("cascade", cascade_engine(params, cfg, DEV), frames)
         phase_profile("sharded-2", sharded_engine(trained, cfg, DEV,
                                                   n_shards=2),

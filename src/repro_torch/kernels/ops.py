@@ -6,12 +6,13 @@ raises.  There is no switch that sends CUDA tensors to the plain
 version and no fallback on failure.  Each CUDA wrapper counts its own
 kernel launches; ``launches()`` reads the counts, so a run can show that
 its main path went through the kernels.  A CUDA graph's replay calls no
-wrapper: its holder adds the launches it captured at every replay
-(``add_launches``), so a count is always of kernels that ran.
+wrapper, so every graph is captured through ``CountedGraph``, which adds
+the launches it captured at every replay: a count is always of kernels
+that ran.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
@@ -55,13 +56,41 @@ def reset_launches() -> None:
 
 
 def add_launches(counts: Dict[str, int], times: int = 1) -> None:
-    """Add ``times`` x ``counts`` to the wrappers' counters: how a CUDA
-    graph's holder counts the launches that a replay runs without
-    calling a wrapper (and, with ``times=-1``, takes back the counts its
-    wrappers made while the graph was captured, when nothing ran)."""
+    """Add ``times`` x ``counts`` to the wrappers' counters."""
     for k, n in counts.items():
         m, a = _COUNTERS[k]
         setattr(m, a, getattr(m, a) + times * n)
+
+
+class CountedGraph:
+    """``body()`` captured as a CUDA graph on ``device``, into the memory
+    pool ``pool`` when one is given; ``out`` is what ``body`` returned
+    while captured, the tensors each ``replay`` rewrites.  The launches
+    the wrappers counted during capture ran nowhere: they are taken back
+    and kept in ``captured``, and each replay adds them.  A failed
+    capture raises; nothing runs eagerly in its place."""
+
+    def __init__(self, body: Callable, device, pool=None):
+        before = launches()
+        try:
+            self.out = self._capture(body, device, pool)
+        finally:
+            self.captured = {k: n - before[k] for k, n in launches().items()
+                             if n != before[k]}
+            add_launches(self.captured, times=-1)
+
+    def _capture(self, body, device, pool):
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device), torch.cuda.graph(self.graph,
+                                                         pool=pool):
+            return body()
+
+    def replay(self):
+        """Run the captured work again; returns ``out``."""
+        self.graph.replay()
+        if self.captured:
+            add_launches(self.captured)
+        return self.out
 
 
 def batched_nms(boxes, scores, *, iou_thr=0.5, score_thr=None, max_out=64,

@@ -164,7 +164,7 @@ class GraphedDecode:
         self.cfg = cfg
         self.runs = decode_runs(cfg)
         self.params = self.cache = None
-        self.graphs = []                # (graph, what it returns) a run
+        self.graphs = []                # an ops.CountedGraph a run
         self.experts = []               # (ffn params, MoEGraph) a router
 
     @torch.no_grad()
@@ -216,22 +216,19 @@ class GraphedDecode:
                           self.cache, self.pos)
 
     def _replayed(self, i, h, f):
-        graph, out = self.graphs[i]
-        graph.replay()
-        return out
+        return self.graphs[i].replay()
 
     def _routed(self, p, x, experts):
         return moe.apply_moe(p, self.cfg, x, experts=experts)[0]
 
     def _capture(self):
         pool = torch.cuda.graph_pool_handle()
+        dev = self.tokens.device
 
         def run(i, h, f):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
-                out = self._eager(i, h, f)
-            self.graphs.append((graph, out))
-            return out
+            self.graphs.append(ops.CountedGraph(
+                lambda: self._eager(i, h, f), dev, pool))
+            return self.graphs[-1].out
 
         with ieee_float32():
             self._walk(run, lambda p, x, experts: experts.capture(
@@ -242,17 +239,10 @@ class MoEGraph:
     """What follows an MoE layer's router in ``GraphedDecode``, as
     ``apply_moe``'s ``experts``: each call copies the router's ``(w,
     idx)`` into fixed inputs, then runs ``moe.moe_experts`` on them, or,
-    once captured, replays it.  ``out`` is the captured output.
-
-    A replay calls no kernel wrapper: the launches the wrappers counted
-    while the graph was captured ran nowhere, so they are taken back and
-    kept in ``captured``, and every replay adds them
-    (``kernels.ops.add_launches``), as ``serving.pipeline.TickGraph``
-    does."""
+    once captured (an ``ops.CountedGraph``), replays it."""
 
     def __init__(self):
-        self.choices = self.graph = self.out = None
-        self.captured = {}
+        self.choices = self.graph = None
 
     def __call__(self, p, cfg, x, choices):
         if self.choices is None:
@@ -263,23 +253,13 @@ class MoEGraph:
                     a.copy_(b)
         if self.graph is None:
             return moe.moe_experts(p, cfg, x, self.choices)
-        self.graph.replay()
-        ops.add_launches(self.captured)
-        return self.out
+        return self.graph.replay()
 
     def capture(self, p, cfg, x, pool):
-        graph = torch.cuda.CUDAGraph()
-        before = ops.launches()
-        try:
-            with torch.cuda.graph(graph, pool=pool):
-                self.out = moe.moe_experts(p, cfg, x, self.choices)
-        finally:
-            self.captured = {k: n - before[k]
-                             for k, n in ops.launches().items()
-                             if n != before[k]}
-            ops.add_launches(self.captured, times=-1)
-        self.graph = graph
-        return self.out
+        self.graph = ops.CountedGraph(
+            lambda: moe.moe_experts(p, cfg, x, self.choices), x.device,
+            pool)
+        return self.graph.out
 
 
 def _seq_len(cfg: ModelConfig, batch):

@@ -1,7 +1,7 @@
 """Serving package of the port: the NVR detection path of the reference
 package's ``serving`` — ``DetectionEngine`` over the incremental
-``ServingRuntime``, the ``TickPipeline`` (staged, or one fused tick
-body a tick: a CUDA-graph replay on the card), the NVR workload
+``ServingRuntime``, the ``TickPipeline`` (one fused tick body a tick:
+a CUDA-graph replay on the card), the NVR workload
 builders and the transprecise cascade (model catalog, ``ModelSelector``,
 ROI second pass).  Every ``FrameRequest`` carries a ``stream_id`` naming its
 camera (default 0); ``rid`` stays globally unique across cameras.  See

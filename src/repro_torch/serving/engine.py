@@ -373,10 +373,11 @@ class DetectionEngine:
     * ``post_process=`` installs a ``TickState -> TickState`` stage
       after detect/NMS/ROI and before the responses and the tracker
       (the state carries the batch's model).
-    * ``fused_tick=True`` runs each tracker tick as one fused tick body
+    * Each tracker tick is one fused tick body
       (``pipeline.make_fused_tick``): on ``cuda`` one CUDA-graph replay
       a tick, with one copy of the detection rows in and one of the
-      tick's outputs back; bit-identical to the staged chain.
+      tick's outputs back; bit-identical to the ``tracking`` module's
+      staged chain.  ``fused_tick`` accepts only True.
     * ``faults=`` takes a ``serving.faults.FaultSchedule`` of
       virtual-time replica slowdowns/deaths/revivals (``fault_shard``
       picks which shard's events apply — 0 standalone).  The scheduler
@@ -403,11 +404,14 @@ class DetectionEngine:
                  recorder=None, catalog=None, selector_kw=None,
                  roi: bool = False, roi_bounds=None, roi_max: int = 4,
                  roi_pad: float = 0.1, roi_crop: Optional[int] = None,
-                 fused_tick: bool = False, post_process=None,
+                 fused_tick: bool = True, post_process=None,
                  carry_tracks: bool = True, device=None):
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}: "
                              "an empty replica pool can never serve")
+        if not fused_tick:
+            raise ValueError("fused_tick=False: the staged tick path is "
+                             "gone; every tick is the fused tick")
         self.device = resolve_device(device)
         self.micro_batch = micro_batch
         self.max_micro_batch = micro_batch or max_micro_batch
@@ -469,7 +473,6 @@ class DetectionEngine:
         self.roi_pad = roi_pad
         self.roi_crop = roi_crop
         self.post_process = post_process
-        self.fused_tick = bool(fused_tick)
         self.carry_tracks = bool(carry_tracks)
         self._exported_tracks: Dict[int, dict] = {}
         # does a custom detect_fn accept the cascade's model= / rois=
@@ -618,9 +621,8 @@ class DetectionEngine:
                      tracks0: Optional[Dict[int, dict]] = None,
                      rec=None) -> List[DetectionResponse]:
         """ONE batched tracker over every camera stream, advanced in
-        lockstep by the shared tick pipeline: tick k covers each stream's
-        k-th arrival frame (the staged ``trk.step``/``trk.coast`` chain
-        by default; the fused tick under ``fused_tick``, bit-identical).
+        lockstep by the shared tick pipeline (the fused tick): tick k
+        covers each stream's k-th arrival frame.
         Streams whose tick-k frame was processed feed the
         associate/update/birth path; streams whose frame was dropped —
         or that have no frame left — get an all-invalid detection row,
@@ -640,7 +642,7 @@ class DetectionEngine:
         sids = sorted(per)
         row = {s: b for b, s in enumerate(sids)}
         B = len(sids)
-        pipe = TickPipeline(cfg, fused=self.fused_tick, device=self.device)
+        pipe = TickPipeline(cfg, device=self.device)
         rows0 = dict(tracks0) if (self.carry_tracks and tracks0) else {}
         state = pipe.seed(sids, rows0)
         if rec.enabled:
@@ -661,7 +663,6 @@ class DetectionEngine:
                     for s in sids]
             resp = {s: by_rid.get(f.rid) if f is not None else None
                     for s, f in tick}
-            det_tid = None
             if any(r is not None for r in resp.values()):
                 boxes = np.zeros((B, D, 4), np.float32)
                 scores = np.zeros((B, D), np.float32)
@@ -673,14 +674,11 @@ class DetectionEngine:
                         boxes[b], scores[b] = r.boxes, r.scores
                         classes[b], valid[b] = r.classes, r.valid
                 with span("track.tick"):
-                    state, det_tid, fout = pipe.tick(state, boxes, scores,
-                                                     classes, valid)
+                    state, det_tid, coasted = pipe.tick(
+                        state, boxes, scores, classes, valid)
             else:                           # no stream saw a detection
                 with span("track.tick"):
-                    state, fout = pipe.coast(state, det_width=D)
-            # fused mode returns the tick's output with it; the staged
-            # chain materializes it lazily, only if a drop needs it
-            coasted = fout
+                    state, coasted = pipe.coast(state, det_width=D)
             for s, f in tick:
                 if f is None:
                     continue
@@ -690,9 +688,6 @@ class DetectionEngine:
                     emit_t[s] = max(emit_t[s], r.t_done)
                     out.append(r)
                 else:
-                    if coasted is None:
-                        coasted = tuple(a.cpu().numpy() for a in
-                                        pipe.output(state))
                     tb, ts, tc, tid, emit = coasted
                     t_ready = max(emit_t[s], f.t_arrival)
                     out.append(DetectionResponse(

@@ -5,11 +5,9 @@ reference package's ``serving/pipeline.py``).
   micro-batch ``images``, the decoded, NMS-suppressed detections
   (``boxes``/``scores``/``classes``/``valid``), the lockstep ``tracker``
   table and the per-detection ``det_tid`` assignment.
-* ``TickPipeline`` — the tracker tick driver on the pipeline's device.
-  Staged mode runs ``tracking.step`` / ``tracking.coast`` per tick and
-  ``tracking.output`` on demand; fused mode runs one tick body (step,
-  then output) every tick, detections or not, and returns the tick's
-  outputs with it.
+* ``TickPipeline`` — the tracker tick driver on the pipeline's device:
+  one fused tick body (step, then output) every tick, detections or
+  not, returning the tick's outputs with it.
 * ``make_fused_tick`` / ``fused_window`` — the fused tick and a K-tick
   window of it as plain functions.
 * ``export_track_rows`` / ``build_tracker_state`` — the portable
@@ -26,19 +24,20 @@ Fused ticks and CUDA graphs
 ---------------------------
 The reference compiles the fused tick as one jitted program with the
 track table donated.  Here, on the CPU, the fused body runs eagerly; on
-``cuda`` it is a ``torch.cuda.CUDAGraph`` (``TickGraph``) captured once
-per (K, B, D) shape over static buffers: the ten ``TrackerState``
-tensors, the detection rows packed into one int32 tensor, and the
-packed outputs.  The body is the staged chain's own ops (``trk.step``,
-then ``trk.output``), so the bits are the staged chain's; only the
-launches change.  A tick copies its rows into the static input from
-pinned memory (one copy), replays the graph and copies ``det_tid`` and
-the outputs back in one copy.  The body ends by writing the new table
-into the static one, which is the state returned: as with the
-reference's donation, the state passed in must not be used again.  An
-all-invalid detection row is bit-identical to ``coast`` (every
-lifecycle write is masked by match/birth bits an invalid row cannot
-set), which is what lets fused mode run one graph every tick.
+``cuda`` it is a CUDA graph (``TickGraph``, through
+``ops.CountedGraph``) captured once per (K, B, D) shape over static
+buffers: the ten ``TrackerState`` tensors, the detection rows packed
+into one int32 tensor, and the packed outputs.  The body is the
+``tracking`` module's staged chain (``trk.step``, then ``trk.output``),
+so the bits are that chain's; only the launches change.  A tick copies
+its rows into the static input from pinned memory (one copy), replays
+the graph and copies ``det_tid`` and the outputs back in one copy.
+The body ends by writing the new table into the static one, which is
+the state returned: as with the reference's donation, the state passed
+in must not be used again.  An all-invalid detection row is
+bit-identical to ``coast`` (every lifecycle write is masked by
+match/birth bits an invalid row cannot set), which is what lets
+``TickPipeline`` run one graph every tick.
 """
 from __future__ import annotations
 
@@ -164,12 +163,6 @@ def _tick_body(state, boxes, scores, classes, valid, cfg):
     return state, det_tid, trk.output(state, cfg)
 
 
-def _rows_to(device, boxes, scores, classes, valid):
-    """numpy detection rows as tensors on ``device``."""
-    return tuple(torch.from_numpy(np.asarray(a)).to(device)
-                 for a in (boxes, scores, classes, valid))
-
-
 def pack_rows(boxes, scores, classes, valid) -> np.ndarray:
     """Detection rows ``boxes`` (..., B, D, 4), ``scores`` / ``classes``
     / ``valid`` (..., B, D) as one (..., B, 7D) int32 array: the float32
@@ -218,28 +211,16 @@ def unpack_outputs(a: np.ndarray, D: int, T: int):
         a[..., col + 3 * T:] != 0)
 
 
-def capture_graph(body, device):
-    """``body()`` captured into a CUDA graph on ``device``.  Returns the
-    graph and what ``body`` returned during capture (the tensors each
-    replay rewrites).  A failed capture raises; nothing runs eagerly in
-    its place."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(device), torch.cuda.graph(graph):
-        out = body()
-    return graph, out
-
-
 class TickGraph:
     """K unrolled tick bodies over static buffers, captured once as one
-    CUDA graph (``capture_graph``) and replayed per call.
+    CUDA graph (``ops.CountedGraph``) and replayed per call.
 
     Before capture the body runs once eagerly on a side stream: the
     first launch of a kernel loads its module, which a capturing stream
     does not allow.  That warm-up throws its table away (the tracker
     step is functional), and its launches ran, so they stay counted.
-    The launches the wrappers count during capture ran nowhere: they
-    are taken back and kept in ``captured``, and every replay adds them
-    (``ops.add_launches``).  ``replays`` counts the replays."""
+    ``captured`` holds the launches a replay runs (the graph adds them
+    at each replay); ``replays`` counts the replays."""
 
     def __init__(self, cfg, K: int, B: int, D: int, device):
         from .. import tracking as trk
@@ -263,15 +244,9 @@ class TickGraph:
             self._body(commit=False)
         if cuda:
             torch.cuda.current_stream(device).wait_stream(side)
-        before = ops.launches()
-        try:
-            self.graph, self.out = capture_graph(
-                lambda: self._body(commit=True), device)
-        finally:
-            after = ops.launches()
-            self.captured = {k: n - before[k] for k, n in after.items()
-                             if n != before[k]}
-            ops.add_launches(self.captured, times=-1)
+        self.graph = ops.CountedGraph(lambda: self._body(commit=True),
+                                      device)
+        self.captured = self.graph.captured
 
     def _body(self, commit: bool):
         """The K tick bodies over the static table and input; returns the
@@ -305,10 +280,9 @@ class TickGraph:
                 dst.copy_(src)
         self._h_in[...] = rows
         self.inp.copy_(self.h_in, non_blocking=True)
-        self.graph.replay()
+        out = self.graph.replay()
         self.replays += 1
-        ops.add_launches(self.captured)
-        self.h_out.copy_(self.out, non_blocking=True)
+        self.h_out.copy_(out, non_blocking=True)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         self.owner = trk.TrackerState(*self.state)
@@ -334,7 +308,7 @@ def graph_ticks(state, boxes, scores, classes, valid, cfg):
     (K, B, D) ``TickGraph`` of ``state``'s device, captured at first
     use.  Returns ``(state, det_tid (K, B, D), out)``, the outputs numpy
     and stacked on the tick axis.  What the fused tick and window run on
-    ``cuda``; nothing in it but ``capture_graph`` needs a card."""
+    ``cuda``; nothing in it but ``ops.CountedGraph`` needs a card."""
     rows = pack_rows(boxes, scores, classes, valid)
     K, B, D = rows.shape[0], rows.shape[1], rows.shape[2] // 7
     key = (cfg, K, B, D, state.active.device)
@@ -354,7 +328,9 @@ def _fused(state, boxes, scores, classes, valid, cfg):
         return graph_ticks(state, boxes, scores, classes, valid, cfg)
     tids, outs = [], []
     for row in zip(boxes, scores, classes, valid):
-        state, det_tid, out = _tick_body(state, *_rows_to(dev, *row), cfg)
+        state, det_tid, out = _tick_body(
+            state, *(torch.from_numpy(np.asarray(a)).to(dev) for a in row),
+            cfg)
         tids.append(det_tid.numpy())
         outs.append([a.numpy() for a in out])
     return state, np.stack(tids), tuple(np.stack(a) for a in zip(*outs))
@@ -388,21 +364,15 @@ def fused_window(state, boxes, scores, classes, valid, cfg):
 
 
 class TickPipeline:
-    """Driver for the tracker end of the tick chain.
+    """Driver for the tracker end of the tick chain: the fused tick
+    (``make_fused_tick``) every tick, detections or not (an all-invalid
+    row is bit-identical to coasting), returning the tick's outputs with
+    it.  The table lives on ``device`` (None: ``cuda``, raising where no
+    CUDA device exists).  ``launches`` counts tracker ticks, one per
+    ``tick`` or ``coast``."""
 
-    ``fused=False`` (the default) runs the staged chain — ``trk.step`` /
-    ``trk.coast`` per tick, ``trk.output`` on demand — through the
-    ``tracking`` module attributes (a test can spy on them).
-    ``fused=True`` runs the fused tick (``make_fused_tick``) every tick,
-    detections or not (an all-invalid row is bit-identical to coasting),
-    and returns the tick's outputs with it.  The table lives on
-    ``device`` (None: ``cuda``, raising where no CUDA device exists);
-    numpy detection rows are moved there per tick.  ``launches`` counts
-    tracker ticks, one per ``tick`` or ``coast``."""
-
-    def __init__(self, cfg, *, fused: bool = False, device=None):
+    def __init__(self, cfg, *, device=None):
         self.cfg = cfg
-        self.fused = fused
         self.device = resolve_device(device)
         self.launches = 0
         self._fused_tick = make_fused_tick(cfg)
@@ -414,42 +384,24 @@ class TickPipeline:
                                    device=self.device)
 
     def tick(self, state, boxes, scores, classes, valid):
-        """One detection tick.  Returns ``(state, det_tid, out)``, with
-        ``det_tid`` as numpy; ``out`` is the tick's confirmed-track
-        output tuple (numpy) in fused mode and None in staged mode (ask
-        ``output`` lazily)."""
-        from .. import tracking as trk   # module attr: spy-patchable
+        """One detection tick over numpy rows.  Returns ``(state,
+        det_tid, out)``, ``det_tid`` and the tick's confirmed-track
+        output tuple ``out`` as numpy."""
         self.launches += 1
-        if self.fused:
-            return self._fused_tick(state, boxes, scores, classes, valid)
-        state, det_tid = trk.step(
-            state, *_rows_to(self.device, boxes, scores, classes, valid),
-            self.cfg)
-        return state, det_tid.cpu().numpy(), None
+        return self._fused_tick(state, boxes, scores, classes, valid)
 
     def coast(self, state, det_width: int = 1):
-        """One detection-free tick; returns ``(state, out)``.  Staged
-        mode runs ``trk.coast`` (``out`` None); fused mode feeds the
-        fused tick an all-invalid (B, det_width) row — bit-identical
-        state, the same graph — and returns its output tuple.
-        ``det_width`` should match the segment's detection width so one
-        graph covers every tick."""
-        from .. import tracking as trk   # module attr: spy-patchable
+        """One detection-free tick: the fused tick over an all-invalid
+        (B, det_width) row, bit-identical to ``tracking.coast``.  Returns
+        ``(state, out)``.  ``det_width`` should match the segment's
+        detection width so one graph covers every tick."""
         self.launches += 1
-        if self.fused:
-            B, D = state.active.shape[0], det_width
-            state, _, out = self._fused_tick(
-                state, np.zeros((B, D, 4), np.float32),
-                np.zeros((B, D), np.float32), np.zeros((B, D), np.int32),
-                np.zeros((B, D), bool))
-            return state, out
-        return trk.coast(state, self.cfg), None
-
-    def output(self, state):
-        """Confirmed-track output of the current table (staged mode's
-        lazy path; fused mode already returned it from the tick)."""
-        from .. import tracking as trk
-        return trk.output(state, self.cfg)
+        B, D = state.active.shape[0], det_width
+        state, _, out = self._fused_tick(
+            state, np.zeros((B, D, 4), np.float32),
+            np.zeros((B, D), np.float32), np.zeros((B, D), np.int32),
+            np.zeros((B, D), bool))
+        return state, out
 
     def export(self, state, sids) -> Dict[int, dict]:
         """Portable per-stream rows of the final table (see

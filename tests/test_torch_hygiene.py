@@ -205,6 +205,20 @@ def test_token_serving_without_cuda_raises(monkeypatch):
                      "cpu")["embed"]["table"].device.type == "cpu"
 
 
+def _to_numpy_state(state):
+    """A port train state as the reference's numpy tree (stages
+    stacked on their repeats axis)."""
+    def tree(p):
+        t = _to_numpy(p)
+        t["stages"] = [{"layers": [_stack(s["layers"])]}
+                       for s in t["stages"]]
+        return t
+    return {"params": tree(state["params"]),
+            "opt": {"m": tree(state["opt"]["m"]),
+                    "v": tree(state["opt"]["v"]),
+                    "step": state["opt"]["step"].numpy()}}
+
+
 def _to_numpy(p):
     if isinstance(p, dict):
         return {k: _to_numpy(v) for k, v in p.items()}
@@ -270,7 +284,9 @@ def _entry_points():
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import concrete_batch, train_state_init
     from repro_torch.configs.base import InputShape
+    from repro_torch.models import train_state_from_numpy
     llm = get_config("minicpm-2b", preset="smoke")
+    llm1 = llm.replace(stages=llm.stages[:1])
     audio = get_config("hubert-xlarge", preset="smoke")
     from repro_torch.launch.mesh import (make_host_mesh, make_replica_mesh,
                                          make_serving_mesh)
@@ -291,8 +307,10 @@ def _entry_points():
             llm, InputShape("t", 8, 1, "train"), **kw)["tokens"].device,
         "restore_checkpoint": _restore_probe,
         "TickPipeline": lambda **kw: TickPipeline(cfg, **kw).device,
-        "TickPipeline(fused=True)": lambda **kw: TickPipeline(
-            cfg, fused=True, **kw).device,
+        "train_state_from_numpy": lambda **kw: train_state_from_numpy(
+            llm1, _to_numpy_state(train_state_init(
+                llm1, torch.Generator().manual_seed(0), AdamWConfig(),
+                device="cpu")), **kw)["opt"]["step"].device,
         "build_tracker_state": lambda **kw: build_tracker_state(
             None, [0, 1], cfg, **kw).active.device,
         "init_state": lambda **kw: init_state(2, cfg, **kw).active.device,

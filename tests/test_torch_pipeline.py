@@ -1,23 +1,33 @@
 """The port's fused tracker tick (``repro_torch.serving.pipeline``)
-against its own staged chain and against the JAX package, on the CPU.
+against the staged chain of the ``tracking`` functions and against the
+JAX package, on the CPU.
 
-* Fused against staged on the port, bit for bit: tick by tick with a
-  detection-free tick in the middle, the all-invalid row against
-  ``coast``, a K-tick ``fused_window`` against the staged chain, and
-  whole serves with ``fused_tick=True`` against staged ones.
+* ``TickPipeline`` (the fused tick) against the staged chain
+  (``trk.step`` / ``trk.coast``, then ``trk.output``), bit for bit: tick
+  by tick with a detection-free tick in the middle, the all-invalid row
+  against ``coast``, a K-tick ``fused_window``, and whole serves against
+  serves whose ticks run the staged chain (``StagedPipeline``).
 * The port against the reference's ``_fused_tick`` / ``fused_window``
   on the same numpy inputs: ``det_tid``, ``active``, ``track_id`` and
   ``emit`` exact; ``pos``/``vel``/``cov`` within rtol 1e-5 (atol 1e-5
   near zero), the coasted output boxes and scores within the
   interpolated tolerance (rtol 1e-5, atol 1e-4): XLA fuses the float32
   Kalman arithmetic, PyTorch runs it op by op.
-* The CUDA-graph holder (``TickGraph``) with ``capture_graph`` replaced
-  by a stand-in that runs the captured body eagerly on the CPU: one
-  capture per shape, replays add the captured launches to
+* The CUDA-graph holder (``TickGraph``) with ``ops.CountedGraph``'s
+  capture replaced by a stand-in that runs the captured body eagerly on
+  the CPU: one capture per shape, replays add the captured launches to
   ``ops.launches()``, a foreign state is copied into the static table,
   a stale one raises, a failed capture raises with nothing run in its
   place, and the packed rows and outputs round trip bit for bit.
+* ``ops.CountedGraph`` itself, with only ``torch.cuda``'s graph pieces
+  stood in, under each of its three users (``TickGraph``, ``MoEGraph``
+  and a ``GraphedDecode`` run): the launches counted while capturing
+  are taken back, and each replay adds them once.
+* ``DetectionEngine(fused_tick=False)`` raises: the staged tick path is
+  gone.
 """
+from contextlib import nullcontext
+
 import numpy as np
 import pytest
 import torch
@@ -28,10 +38,16 @@ from repro.core import proxy_detect_fn_streams as jproxy
 from repro.serving import DetectionEngine as JEngine
 from repro.serving import make_nvr_streams as jstreams
 from repro.serving import pipeline as jpipe
+from repro_torch.configs import get_config
 from repro_torch.core import proxy_detect_fn_streams as tproxy
 from repro_torch.kernels import association, ops
+from repro_torch.kernels import decode_attention as kdecode
+from repro_torch.kernels import routed_experts as krouted
+from repro_torch.models import init_model, moe
+from repro_torch.runtime import GraphedDecode, make_prefill_step, steps
 from repro_torch.serving import DetectionEngine as TEngine
 from repro_torch.serving import TickPipeline
+from repro_torch.serving import engine as tengine
 from repro_torch.serving import make_nvr_streams as tstreams
 from repro_torch.serving import pipeline as tpipe
 from test_torch_serving import assert_reports_match
@@ -98,29 +114,72 @@ def assert_outputs_match_reference(jout, tout, what):
                                    err_msg=f"{what} {name}")
 
 
-# ----------------------------------------------- fused == staged (port)
+# ---------------------------------------- fused tick == staged chain
+def staged_chain(state, ticks):
+    """The staged chain over ``ticks`` (numpy detection rows): a
+    ``trk.step`` a tick, then ``trk.output``.  Returns the final state and
+    each tick's ``det_tid`` and outputs as numpy."""
+    tids, outs = [], []
+    for t in ticks:
+        state, tid = ttrk.step(state, *(torch.from_numpy(a) for a in t),
+                               CFG_T)
+        tids.append(tid.numpy())
+        outs.append([a.numpy() for a in ttrk.output(state, CFG_T)])
+    return state, tids, outs
+
+
+class StagedPipeline(TickPipeline):
+    """``TickPipeline`` with its ticks run by the staged chain of the
+    ``tracking`` functions: ``trk.step`` (or ``trk.coast`` on a
+    detection-free tick), then ``trk.output``."""
+
+    def tick(self, state, boxes, scores, classes, valid):
+        self.launches += 1
+        state, tid = ttrk.step(
+            state, *(torch.from_numpy(np.asarray(a)).to(self.device)
+                     for a in (boxes, scores, classes, valid)), self.cfg)
+        return state, tid.cpu().numpy(), self._output(state)
+
+    def coast(self, state, det_width=1):
+        self.launches += 1
+        state = ttrk.coast(state, self.cfg)
+        return state, self._output(state)
+
+    def _output(self, state):
+        return tuple(a.cpu().numpy() for a in ttrk.output(state, self.cfg))
+
+
+def serve(engine, frames, staged=False):
+    """``engine.serve(frames)``; with ``staged`` the engine's tracker
+    ticks run the staged chain (``StagedPipeline``)."""
+    with pytest.MonkeyPatch.context() as m:
+        if staged:
+            m.setattr(tengine, "TickPipeline", StagedPipeline)
+        return engine.serve(frames)
+
+
 @pytest.mark.parametrize("B,D", [(1, 4), (3, 5)])
 def test_fused_tick_bit_identical_to_staged_chain(B, D):
     rng = np.random.default_rng(42)
-    staged = TickPipeline(CFG_T, device="cpu")
-    fused = TickPipeline(CFG_T, fused=True, device="cpu")
-    s1 = staged.seed(list(range(B)))
-    s2 = fused.seed(list(range(B)))
+    pipe = TickPipeline(CFG_T, device="cpu")
+    s1 = ttrk.init_state(B, CFG_T, device="cpu")
+    s2 = pipe.seed(list(range(B)))
     for k in range(8):
         dets = random_dets(rng, B, D)
         if k == 5:            # a detection-free tick mid-sequence
-            s1, o1 = staged.coast(s1, det_width=D)
-            s2, o2 = fused.coast(s2, det_width=D)
+            s1 = ttrk.coast(s1, CFG_T)
+            s2, o2 = pipe.coast(s2, det_width=D)
         else:
-            s1, tid1, o1 = staged.tick(s1, *dets)
-            s2, tid2, o2 = fused.tick(s2, *dets)
+            s1, tid1 = ttrk.step(s1, *(torch.from_numpy(a) for a in dets),
+                                 CFG_T)
+            s2, tid2, o2 = pipe.tick(s2, *dets)
             assert isinstance(tid2, np.ndarray) and tid2.shape == (B, D)
-            np.testing.assert_array_equal(tid1, tid2, err_msg=str(k))
-        assert o1 is None and o2 is not None
+            np.testing.assert_array_equal(tid1.numpy(), tid2,
+                                          err_msg=str(k))
         assert_states_equal(s1, s2)
-        assert_outputs_equal([a.numpy() for a in staged.output(s1)], o2,
-                             f"tick {k}")
-    assert staged.launches == fused.launches == 8
+        assert_outputs_equal([a.numpy() for a in ttrk.output(s1, CFG_T)],
+                             o2, f"tick {k}")
+    assert pipe.launches == 8
     assert tpipe.export_track_rows(s1, range(B)).keys() \
         == tpipe.export_track_rows(s2, range(B)).keys()
 
@@ -128,7 +187,7 @@ def test_fused_tick_bit_identical_to_staged_chain(B, D):
 def test_fused_all_invalid_row_equals_coast():
     rng = np.random.default_rng(3)
     B, D = 2, 6
-    pipe = TickPipeline(CFG_T, fused=True, device="cpu")
+    pipe = TickPipeline(CFG_T, device="cpu")
     s = pipe.seed([0, 1])
     for _ in range(3):
         s, _, _ = pipe.tick(s, *random_dets(rng, B, D))
@@ -143,12 +202,8 @@ def test_fused_window_bit_identical_to_staged_chain():
     rng = np.random.default_rng(7)
     B, D, K = 2, 5, 6
     ticks, stacked = window(rng, K, B, D)
-    s1 = ttrk.init_state(B, CFG_T, device="cpu")
-    tids, outs = [], []
-    for t in ticks:
-        s1, tid = ttrk.step(s1, *(torch.from_numpy(a) for a in t), CFG_T)
-        tids.append(tid.numpy())
-        outs.append([a.numpy() for a in ttrk.output(s1, CFG_T)])
+    s1, tids, outs = staged_chain(ttrk.init_state(B, CFG_T, device="cpu"),
+                                  ticks)
     s2, wtid, wout = tpipe.fused_window(
         ttrk.init_state(B, CFG_T, device="cpu"), *stacked, CFG_T)
     assert_states_equal(s1, s2)
@@ -219,10 +274,10 @@ def engine_kw(seed):
 def test_fused_engine_report_identical_to_staged(seed):
     kw = engine_kw(seed)
     reps = []
-    for fused in (False, True):
+    for staged in (True, False):
         frames, oracle = random_trace(tstreams, tproxy, seed)
-        reps.append(TEngine(detect_fn=oracle, fused_tick=fused,
-                            device="cpu", **kw).serve(frames))
+        reps.append(serve(TEngine(detect_fn=oracle, device="cpu", **kw),
+                          frames, staged))
     assert_reports_match(*reps)
     assert reps[1]["tracker_launches"] == reps[1]["tracker_ticks"]
 
@@ -240,31 +295,36 @@ def test_fused_engine_matches_reference_fused(seed):
 
 def test_fused_engine_interpolates_on_nvr_trace():
     """A drop-regime NVR trace: fused serves interpolate, and equal the
-    staged serve and the reference's fused serve."""
+    staged chain's serve and the reference's fused serve."""
     kw = dict(n_replicas=1, service_time=0.4, track_and_interpolate=True)
     f, fo, v, d = jstreams(3, 16, rate=4.0)
     base = JEngine(detect_fn=jproxy(v, d, fo), fused_tick=True,
                    **kw).serve(f)
     reps = []
-    for fused in (False, True):
+    for staged in (True, False):
         f, fo, v, d = tstreams(3, 16, rate=4.0)
-        reps.append(TEngine(detect_fn=tproxy(v, d, fo), fused_tick=fused,
-                            device="cpu", **kw).serve(f))
+        reps.append(serve(TEngine(detect_fn=tproxy(v, d, fo),
+                                  device="cpu", **kw), f, staged))
     assert reps[1]["interpolated"] > 0 and reps[1]["coverage"] == 1.0
     assert_reports_match(*reps)
     assert_reports_match(base, reps[1])
 
 
+def test_staged_tick_path_is_gone():
+    with pytest.raises(ValueError, match="staged tick path is gone"):
+        TEngine(detect_fn=lambda *a: None, fused_tick=False, device="cpu")
+    assert not hasattr(TEngine(device="cpu"), "fused_tick")
+
+
 # ---------------------------------------- the CUDA-graph holder, stood in
-class EagerGraph:
+class Rerun:
     """Stands in for a captured CUDA graph on the CPU: ``replay`` runs
     the captured body again into the tensors the capture returned, and
     holds the wrappers' counters as they were, as a real replay (which
     calls no wrapper) would."""
 
-    def __init__(self, body):
-        self.body = body
-        self.out = body()          # a capture runs the Python once
+    def __init__(self, body, out):
+        self.body, self.out = body, out
 
     def replay(self):
         held = ops.launches()
@@ -272,41 +332,41 @@ class EagerGraph:
         ops.add_launches({k: held[k] - n for k, n in ops.launches().items()})
 
 
+class EagerGraph(ops.CountedGraph):
+    """``ops.CountedGraph`` with the capture stood in: the body runs once
+    (a capture runs the Python once) and the graph is a ``Rerun``; the
+    launch accounting is ``CountedGraph``'s own.  ``captures`` lists
+    the devices captured on."""
+    captures: list = []
+
+    def _capture(self, body, device, pool):
+        self.captures.append(device)
+        out = body()
+        self.graph = Rerun(body, out)
+        return out
+
+
 @pytest.fixture
 def stand_in(monkeypatch):
-    """``capture_graph`` replaced by ``EagerGraph``; the CPU plain
+    """``ops.CountedGraph`` replaced by ``EagerGraph``; the CPU plain
     assignment counted as if it were the kernel's wrapper; the graph
     cache and counters emptied before and after.  Yields the list of
     captures made."""
     captures = []
     plain = ops.greedy_assign_torch
 
-    def capture(body, device):
-        captures.append(device)
-        g = EagerGraph(body)
-        return g, g.out
-
     def counted(*a, **k):
         association.LAUNCHES += 1
         return plain(*a, **k)
 
-    monkeypatch.setattr(tpipe, "capture_graph", capture)
+    monkeypatch.setattr(EagerGraph, "captures", captures)
+    monkeypatch.setattr(ops, "CountedGraph", EagerGraph)
     monkeypatch.setattr(ops, "greedy_assign_torch", counted)
     tpipe.clear_tick_graphs()
     ops.reset_launches()
     yield captures
     tpipe.clear_tick_graphs()
     ops.reset_launches()
-
-
-def staged_chain(state, ticks):
-    tids, outs = [], []
-    for t in ticks:
-        state, tid = ttrk.step(state, *(torch.from_numpy(a) for a in t),
-                               CFG_T)
-        tids.append(tid.numpy())
-        outs.append([a.numpy() for a in ttrk.output(state, CFG_T)])
-    return state, tids, outs
 
 
 def test_graph_ticks_bit_identical_through_the_holder(stand_in):
@@ -409,12 +469,12 @@ def test_failed_capture_raises_with_no_eager_fallback(monkeypatch,
         ran.append(1)
         return real_step(*a, **k)
 
-    def failing(body, device):
+    def failing(body, device, pool=None):
         raise RuntimeError("operation not permitted when stream is "
                            "capturing")
 
     monkeypatch.setattr(ttrk, "step", step)
-    monkeypatch.setattr(tpipe, "capture_graph", failing)
+    monkeypatch.setattr(ops, "CountedGraph", failing)
     state = ttrk.init_state(2, CFG_T, device="cpu")
     with pytest.raises(RuntimeError, match="capturing"):
         tpipe.graph_ticks(state, *(a[None] for a in empty_dets(2, 4)),
@@ -422,6 +482,129 @@ def test_failed_capture_raises_with_no_eager_fallback(monkeypatch,
     assert ran == [1]            # the warm-up, and nothing after it
     assert tpipe.tick_graphs() == []
     assert ops.launches()["greedy_assign"] == 1     # the warm-up's
+
+
+# ----------------------------------- ops.CountedGraph under its users
+class NoGraph:
+    """Stands in for ``torch.cuda.CUDAGraph``: a replay runs nothing."""
+
+    def replay(self):
+        pass
+
+
+class NoDevice(nullcontext):
+    """Stands in for ``torch.cuda.device`` (a class: torch checks
+    instances of it): entering it changes nothing."""
+
+    def __init__(self, device):
+        super().__init__()
+
+
+def _counting(monkeypatch, owner, name, module, attr, n=1):
+    """``owner.name`` replaced by a call that adds ``n`` to
+    ``module.attr``, as a kernel's wrapper counts, then runs the real
+    one."""
+    real = getattr(owner, name)
+
+    def counted(*a, **k):
+        setattr(module, attr, getattr(module, attr) + n)
+        return real(*a, **k)
+    monkeypatch.setattr(owner, name, counted)
+
+
+def _tick_graph_user(monkeypatch):
+    _counting(monkeypatch, ops, "greedy_assign_torch", association,
+              "LAUNCHES")
+    rows = tpipe.pack_rows(*(np.stack([a, a]) for a in empty_dets(1, 4)))
+    held = {"state": ttrk.init_state(1, CFG_T, device="cpu")}
+
+    def capture():
+        held["g"] = tpipe.TickGraph(CFG_T, 2, 1, 4, torch.device("cpu"))
+        return [held["g"].graph]
+
+    def replay():
+        held["state"], _ = held["g"](held["state"], rows)
+
+    return "greedy_assign", capture, replay, 1      # and one warm-up
+
+
+def _moe_graph_user(monkeypatch):
+    cfg = get_config("grok-1-314b", preset="smoke")
+    p = moe.init_moe(torch.Generator().manual_seed(3), cfg)
+    x = torch.randn((1, 1, cfg.d_model),
+                    generator=torch.Generator().manual_seed(5))
+    _counting(monkeypatch, moe.ops, "routed_expert_ffn", krouted,
+              "LAUNCHES", 2)
+    monkeypatch.setattr(moe, "_decode_shaped", lambda x_disp, we: True)
+    choices = [moe.route(x[0], p["router"]["w"], cfg.moe)[:2]]
+    experts = steps.MoEGraph()
+    experts(p, cfg, x, choices)            # fixes the router's inputs
+
+    def capture():
+        experts.capture(p, cfg, x, None)
+        return [experts.graph]
+
+    return ("routed_experts", capture,
+            lambda: experts(p, cfg, x, choices), 0)
+
+
+def _graphed_decode_user(monkeypatch):
+    cfg = get_config("qwen3-4b", preset="smoke")
+    params = init_model(cfg, torch.Generator().manual_seed(0),
+                        device="cpu")
+    toks = torch.arange(1, 6)[None]
+    logits, cache = make_prefill_step(cfg, cache_len=16)(
+        params, {"tokens": toks})
+    step = GraphedDecode(cfg)
+    batch = {"tokens": torch.argmax(logits, -1)[:, None], "cache": cache,
+             "decode_pos": 5}
+    step(params, batch)                    # eager on the CPU: no capture
+    assert not step.graphs
+    # a counted launch inside the run, which no wrapper makes today
+    _counting(monkeypatch, steps, "decode_run", kdecode, "LAUNCHES")
+
+    def capture():
+        with torch.no_grad():
+            step._capture()
+        return step.graphs
+
+    def replay():
+        step(params, dict(batch, cache=step.cache, decode_pos=6))
+
+    return "decode_attention", capture, replay, 0
+
+
+GRAPH_USERS = {"TickGraph": _tick_graph_user, "MoEGraph": _moe_graph_user,
+               "GraphedDecode": _graphed_decode_user}
+
+
+@pytest.mark.parametrize("user", sorted(GRAPH_USERS))
+def test_counted_graph_takes_back_capture_and_adds_each_replay(monkeypatch,
+                                                               user):
+    """Each user captures through the real ``ops.CountedGraph``, with
+    ``torch.cuda``'s graph pieces stood in (a replay runs nothing): the
+    launches counted while capturing are taken back and kept, and each
+    replay adds them once."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", NoGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph, pool=None: nullcontext())
+    monkeypatch.setattr(torch.cuda, "device", NoDevice)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    tpipe.clear_tick_graphs()
+    ops.reset_launches()
+    key, capture, replay, warm_ups = GRAPH_USERS[user](monkeypatch)
+    before = ops.launches()
+    graphs = capture()
+    assert graphs and all(type(g) is ops.CountedGraph
+                          and isinstance(g.graph, NoGraph) for g in graphs)
+    per = sum(g.captured.get(key, 0) for g in graphs)
+    assert per > 0 and all(set(g.captured) <= {key} for g in graphs)
+    for n in range(4):                     # no other counter moves
+        assert ops.launches() == dict(
+            before, **{key: before[key] + (warm_ups + n) * per})
+        replay()
+    tpipe.clear_tick_graphs()
+    ops.reset_launches()
 
 
 def test_packing_round_trips_bit_for_bit():

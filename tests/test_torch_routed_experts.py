@@ -209,6 +209,20 @@ class _Graph:
         pass
 
 
+class _NoDevice:
+    """A stand-in for ``torch.cuda.device`` on a CPU tensor's device:
+    entering it changes nothing."""
+
+    def __init__(self, device):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
 def test_moe_graph_counts_its_captured_launches_at_each_replay(monkeypatch):
     """``MoEGraph``: the eager call counts the wrapper's two launches;
     the capture's own count is taken back (nothing ran) and kept; each
@@ -228,13 +242,14 @@ def test_moe_graph_counts_its_captured_launches_at_each_replay(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
     monkeypatch.setattr(torch.cuda, "graph",
                         lambda graph, pool=None: nullcontext())
+    monkeypatch.setattr(torch.cuda, "device", _NoDevice)
     w, idx, _ = moe.route(x[0], p["router"]["w"], cfg.moe)
     experts = MoEGraph()
     ops.reset_launches()
     want = experts(p, cfg, x, [(w, idx)])
     assert ops.launches()["routed_experts"] == 2
     out = experts.capture(p, cfg, x, None)
-    assert experts.captured == {"routed_experts": 2}
+    assert experts.graph.captured == {"routed_experts": 2}
     assert ops.launches()["routed_experts"] == 2 and torch.equal(out, want)
     for n in (4, 6):
         experts(p, cfg, x, [(w, idx)])

@@ -20,9 +20,10 @@
   the two-block split on ``("cpu", "cpu")`` keeps every discrete field
   of the one-device result and its floats within 1e-6 (convs of another
   batch size sum in another order, as in ``test_torch_repairs.py``).
-* The fused tick under sharding: a rebalancing serve with
-  ``fused_tick=True`` and the CUDA-graph holder stood in equals the
-  staged serve, the shards' equal-shaped segments sharing one graph.
+* The fused tick under sharding: a rebalancing serve with the
+  CUDA-graph holder stood in equals the serve whose ticks run the staged
+  chain of the ``tracking`` functions, the shards' equal-shaped segments
+  sharing one graph.
 """
 import jax
 import numpy as np
@@ -52,6 +53,7 @@ from repro_torch.serving import make_spmd_detect
 from repro_torch.serving import merge_shard_reports as tmerge
 from repro_torch.serving import pipeline as tpipe
 from repro_torch.sharding import serving_rules as trules
+from test_torch_pipeline import serve
 from test_torch_pipeline import stand_in  # noqa: F401  (fixture)
 from test_torch_serving import _pixel_frames, assert_reports_match
 
@@ -358,17 +360,17 @@ def test_meshless_shards_share_one_detector(weights):
 def test_fused_sharded_rebalance_equals_staged(monkeypatch, stand_in):
     """Both shards' segments have the same (B, D), so they replay one
     graph in turns, each from its own carried rows; the report equals
-    the staged one exactly and every graph replay counted its launch."""
+    the staged chain's exactly and every graph replay counted its
+    launch."""
     monkeypatch.setattr(tpipe, "_fused", tpipe.graph_ticks)
     reps = {}
     for fused in (False, True):
         ops.reset_launches()
         f, fo, v, d = tskewed(6, n_shards=2, **SKEW_KW)
-        reps[fused] = TSharded(
+        reps[fused] = serve(TSharded(
             detect_fn=tproxy(v, d, fo), n_shards=2, n_replicas=2,
             service_time=0.36, rebalance=True, epoch_s=4.0,
-            track_and_interpolate=True, fused_tick=fused,
-            device="cpu").serve(f)
+            track_and_interpolate=True, device="cpu"), f, staged=not fused)
     assert reps[True]["migrations"]
     assert_reports_match(reps[False], reps[True])
     graphs = tpipe.tick_graphs()

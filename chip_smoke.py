@@ -85,7 +85,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``torch.bmm`` products; and its launches counted inside a served
    decode (grok-1's smoke preset, graphs replayed: two a call at each MoE
    layer of every decode step, none in its prefill of 12 slots an
-   expert);
+   expert); then ``[mla-decode]``: the MLA decode kernel (table row 10,
+   no TPU kernel) at dsv3-decode's shapes (``MLA_SHAPE``: 128 heads,
+   kv_lora 512, rope 64, a ring of 4,608 slots) with 1,000, 2,350 and
+   4,608 filled, bf16, within ``MLA_RTOL`` + ``MLA_ATOL_SHARE`` of the
+   plain version, two calls bit-equal, three launches a call, NaN in
+   every slot outside the mask changing nothing; its wrapper, the kernel
+   alone (replayed from a CUDA graph, cold after ``L2_FLUSH_BYTES``
+   written and warm) and the plain version timed beside the least time
+   (bytes at 3.35 TB/s against the operations as the kernel runs them:
+   bf16 tensor-core products at 989 TFLOP/s, P's three pieces counted,
+   and float32 multiply-adds at 67 TFLOP/s); and
+   its launches counted inside a served decode (DeepSeek-V3's smoke
+   preset, graphs replayed: three a call at each MLA layer of every
+   decode step);
 8. the fused tracker tick (``[fused]``), the only tick the engines
    have: the NVR serve of phase 3, each tick one CUDA-graph replay,
    counted from zero: one capture, a replay a tick, and
@@ -240,9 +253,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    equal to 6 uninterrupted steps (bit for bit where the card repeated
    its gradients in 18); then ``launch.train --device cuda --preset
    smoke --steps 20 --checkpoint`` must print its round-trip line.  The
-   nine kernels' launches are counted from zero over 17-20 and must all
+   ten kernels' launches are counted from zero over 17-20 and must all
    be 0: the reference's training reaches no Pallas kernel, and a
-   product that records a gradient keeps ``torch.bmm``;
+   product that records a gradient keeps ``torch.bmm`` (and MLA its
+   expanded attention);
 21. ``[mesh]``: ``launch.mesh.make_serving_mesh(1)`` is ``("cuda:0",)``,
    one shard more than there are cards raises ``ValueError``, and
    qwen3-4b's smoke decode logits inside ``mesh_context(
@@ -292,8 +306,10 @@ replace the reference's: the model code computes attention with
 and the RWKV recurrence in plain tensor code, as the reference's does;
 ``[rwkv-model]``'s one scan launch is a check beside the model.  The
 MoE families' decode (and a prefill of at most 4 slots an expert)
-launches the routed-experts kernel, which replaces none; each family's
-serve prints the launches it counted.
+launches the routed-experts kernel, and MLA's absorbed decode the MLA
+decode kernel, which replace none; each family's serve prints the
+launches it counted (``[llm-deepseek]``'s MLA launches must be three a
+layer and decode step).
 
 The third-to-last line is a JSON object with one entry per kernel, the
 second-to-last the card's name and power limit, the last
@@ -361,6 +377,7 @@ from repro_torch.kernels import association as kassoc  # noqa: E402
 from repro_torch.kernels import decode_attention as kdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import iou as kiou  # noqa: E402
+from repro_torch.kernels import mla_decode as kmla  # noqa: E402
 from repro_torch.kernels import nms as knms  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import roi as kroi  # noqa: E402
@@ -495,6 +512,18 @@ MOE_TOUCHED = ((), (5,), (2, 7))
 # rounding boundary may round to its neighbour; y rounds once more);
 # tests/test_torch_routed_experts.py holds the same
 MOE_RTOL, MOE_ATOL_SHARE = 2.0 ** -7, 2.0 ** -8
+# [mla-decode]: MLA's absorbed decode at dsv3-decode's shapes: DeepSeek-V3's
+# 128 heads, kv_lora 512, rope 64, nope 128, v 128, the cell's ring of 4,608
+# slots (bench/systems/mla_moe.py: feed.longest_total) with 1,000, 2,350 (a
+# request's mean) and 4,608 of them filled, bf16, its YaRN softmax scale;
+# the kernel against the plain version as tests/test_torch_mla_decode.py
+# holds it (each element within two bf16 ulps of its value plus 1/256 of
+# the largest: q_abs and the output may round to the neighbouring bf16)
+MLA_SHAPE = dict(B=1, H=128, R=512, P=64, N=128, V=128, L=4608)
+MLA_FILLED = (1000, 2350, 4608)
+MLA_SCALE = 192 ** -0.5 * (0.1 * np.log(40.0) + 1) ** 2
+MLA_RTOL, MLA_ATOL_SHARE = 2.0 ** -7, 2.0 ** -8
+L2_FLUSH_BYTES = 64 << 20       # written before a cold call: > the 50 MB L2
 # [train]: the example's SGD loop at its own settings (SSDConfig(),
 # batch 8, 150 steps on ETH-Sunnyday); each step's loss and parts on the
 # card within TRAIN_RTOL of the CPU run's, relative to the larger of the
@@ -1035,8 +1064,9 @@ def check_mma_zero_identity(n_tiles=512):
 
 def check_counters(b, s, assign_args, crop_args, uncrop_args):
     """Each wrapper counts one launch where it launches its kernel (the
-    routed-experts wrapper two: its gate/up and down passes) and nothing
-    where it launches none (an empty batch; no expert)."""
+    routed-experts wrapper two: its gate/up and down passes; the MLA
+    decode wrapper three: absorb, attend, combine) and nothing where it
+    launches none (an empty batch; no expert)."""
     imgs, rois, C = crop_args
     boxes, brois, bounds, bC = uncrop_args
     x = torch.ones((2, 2, 128, 32), device=DEV)
@@ -1047,6 +1077,10 @@ def check_counters(b, s, assign_args, crop_args, uncrop_args):
     xe, sw = torch.ones((2, 4, 8), device=DEV), torch.ones(8, device=DEV)
     wu, wd = torch.ones((2, 8, 16), device=DEV), torch.ones((2, 16, 8),
                                                             device=DEV)
+    q = torch.ones((2, 1, 4, 48), dtype=torch.bfloat16, device=DEV)
+    ring = [torch.ones((2, 24, w), dtype=torch.bfloat16, device=DEV)
+            for w in (64, 16)]
+    wkv = torch.ones((64, 4, 32), dtype=torch.bfloat16, device=DEV)
     calls = lambda k: (  # noqa: E731
         knms.batched_nms_cuda(b[:k], s[:k], **NMS_KW),
         kassoc.greedy_assign_cuda(*(a[:k] for a in assign_args),
@@ -1060,19 +1094,23 @@ def check_counters(b, s, assign_args, crop_args, uncrop_args):
         krwkv.rwkv_scan_cuda(*(seq[:k],) * 4, u, s0[:k]),
         krouted.routed_expert_ffn_cuda(xe[:k], sw[:4 * (2 if k is None
                                                         else k)],
-                                       wu[:k], wu[:k], wd[:k]))
+                                       wu[:k], wu[:k], wd[:k]),
+        kmla.mla_decode_cuda(q[:k, ..., :32], q[:k, ..., 32:], ring[0][:k],
+                             ring[1][:k], wkv, wkv, 5, scale=0.25))
     ops.reset_launches()
     calls(0)
     check(set(ops.launches().values()) == {0},
           f"launch counted for an empty batch: {ops.launches()}")
     calls(None)
-    # the routed-experts wrapper launches its two passes a call
+    # the routed-experts wrapper launches its two passes a call, the MLA
+    # decode wrapper its three
     check(ops.launches() == dict({k: 1 for k in ops.launches()},
-                                 routed_experts=2),
-          f"one launch each (two for routed_experts) counted as "
-          f"{ops.launches()}")
+                                 routed_experts=2, mla_decode=3),
+          f"one launch each (two for routed_experts, three for mla_decode) "
+          f"counted as {ops.launches()}")
     print("[counters] empty batch: no launch counted; one call: one each, "
-          f"two for routed_experts ({', '.join(ops.launches())})")
+          f"two for routed_experts, three for mla_decode "
+          f"({', '.join(ops.launches())})")
 
 
 def phase_kernels(params, cfg, anchors, frames):
@@ -2972,6 +3010,206 @@ def moe_served_launches():
     return launches
 
 
+def mla_inputs(g, B, H, R, P, N, V, L):
+    """bf16 inputs of the absorbed decode: q_nope as the layer slices it
+    (a view of q), q_pe, the ring, and W_kb, W_vb of N(0, 1/r) entries."""
+    q = _randn(g, (B, 1, H, N + P), torch.bfloat16)
+    return (q[..., :N], q[..., N:].contiguous(),
+            _randn(g, (B, L, R), torch.bfloat16),
+            _randn(g, (B, L, P), torch.bfloat16),
+            _randn(g, (R, H * N)).mul_(R ** -0.5).to(torch.bfloat16)
+            .reshape(R, H, N),
+            _randn(g, (R, H * V)).mul_(R ** -0.5).to(torch.bfloat16)
+            .reshape(R, H, V))
+
+
+def mla_bound_ms(n, B, H, R, P, N, V):
+    """The least time of a call with n filled slots: the larger of its
+    bytes (W_kb and W_vb, the filled slots, the query and the output, each
+    read or written once, bf16) at 3.35 TB/s and its operations as the
+    kernel runs them: the scores' 2 H n (r + rope) and the context's 2 H n
+    r, the latter three times (P's three bf16 pieces), at the bf16
+    tensor-core rate (989 TFLOP/s), then the absorb's and the combine's 2
+    H r (nope + v) float32 multiply-adds at 67 TFLOP/s.  Returns (ms, what
+    bounds it)."""
+    nbytes = 2 * (R * H * (N + V) + B * n * (R + P) + B * H * (N + P + V))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (2 * B * H * n * (R + P + 3 * R) / BF16_OPS_PER_S
+             + 2 * B * H * R * (N + V) / FP32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def replay_ms(fn, before=None, iters=200):
+    """Device ms a call of ``fn``: captured in a CUDA graph (after
+    ``before``, whose own graph's time is then taken off) and replayed,
+    CUDA events over ``iters`` replays after 5.  No host time enters."""
+    def graph(body):
+        body()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            body()
+        return g
+
+    def timed(g):
+        for _ in range(5):
+            g.replay()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        for _ in range(iters):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    both = timed(graph(lambda: (before and before(), fn())))
+    return both - (timed(graph(before)) if before else 0.0)
+
+
+def phase_mla_decode():
+    """``[mla-decode]``: the MLA decode kernel (table row 10) at
+    ``MLA_SHAPE`` with ``MLA_FILLED`` slots filled: within ``MLA_RTOL`` +
+    ``MLA_ATOL_SHARE`` of the plain version, two calls bit-equal and
+    counted as three launches each from zero, NaN in every slot outside
+    the mask changing nothing; then the wrapper (eager, its host time
+    included: CUDA events over 200 calls after 20 warm-ups), the kernel
+    alone over fixed scratch and the plain version, both replayed from
+    CUDA graphs, the kernel with the weights in L2 (warm) and after
+    ``L2_FLUSH_BYTES`` written before each call (cold, as a decode step
+    finds them), beside the least time (``mla_bound_ms``); then the
+    launches inside a served decode (``mla_served_launches``).  Returns
+    those launches and the table's entry (2,350 filled, cold)."""
+    sh = MLA_SHAPE
+    g = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    args = mla_inputs(g, **sh)
+    launch = build.function("mla_decode", "mla_decode_launch",
+                            kmla._LAUNCH_ARGS)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    B, H, R, P, N, V, L = (sh[k] for k in "BHRPNVL")
+    entry = None
+    for n in MLA_FILLED:
+        free_cuda()
+        pos = torch.tensor(n - 1, device=DEV)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got = ops.mla_decode(*args, pos, scale=MLA_SCALE)
+        again = ops.mla_decode(*args, pos, scale=MLA_SCALE)
+        torch.cuda.synchronize()
+        launches = ops.launches()
+        check(launches == dict({k: 0 for k in launches}, mla_decode=6),
+              f"[mla-decode] {n} filled: launches {launches} for two calls;"
+              " not three a call")
+        want = kmla.mla_decode_torch(*args, pos, scale=MLA_SCALE).float()
+        diff = (got.float() - want).abs()
+        top = float(want.abs().max())
+        ok = bool((diff <= MLA_RTOL * want.abs() + MLA_ATOL_SHARE * top)
+                  .all())
+        err = float(diff.max())
+        nan_same = True
+        if n < L:
+            dirty = list(args)
+            for t in (2, 3):
+                dirty[t] = args[t].clone()
+                dirty[t][:, n:] = float("nan")
+            nan_same = torch.equal(
+                ops.mla_decode(*dirty, pos, scale=MLA_SCALE), got)
+            del dirty
+        print(f"[mla-decode] H={H} r={R} rope={P} L={L}, {n} filled: max "
+              f"|kernel - plain| {err:.4e} (max |plain| {top:.4e}; within "
+              f"{MLA_RTOL:.4g} x |plain| + {MLA_ATOL_SHARE:.4g} x max: {ok})"
+              f"; two calls bit-equal: {torch.equal(got, again)}; NaN in "
+              f"the {L - n} slots outside the mask changes nothing: "
+              f"{nan_same}")
+        check(ok and torch.equal(got, again) and nan_same,
+              f"[mla-decode] {n} filled: kernel != plain version")
+        ms = cuda_ms(lambda: kmla.mla_decode_cuda(*args, pos,
+                                                  scale=MLA_SCALE))
+        (clusters, sms), = [v for k, v in kmla._FITS.items()
+                            if k[1:] == (R, P, 8)]
+        S, cs = kmla.splits(B, H, L, clusters, 8), 8
+        q_abs = torch.empty((B, R, H), dtype=torch.bfloat16, device=DEV)
+        part = torch.empty(B * H * S * R, device=DEV)
+        part_ml = torch.empty(B * H * S * 2, device=DEV)
+        out = torch.empty((B, 1, H, V), dtype=torch.bfloat16, device=DEV)
+        qn, qp, ckv, kpe, wk, wv = args
+
+        def kernel():
+            build.check(launch(
+                qn.data_ptr(), qp.data_ptr(), ckv.data_ptr(), kpe.data_ptr(),
+                wk.data_ptr(), wv.data_ptr(), pos.data_ptr(), qn.stride(0),
+                qn.stride(2), qp.stride(0), qp.stride(2), 0, B, H, N, R, P,
+                V, L, S, 0, sms, cs, MLA_SCALE, q_abs.data_ptr(),
+                part.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), "mla_decode_launch")
+
+        warm_ms = replay_ms(kernel)
+        cold_ms = replay_ms(kernel, before=flush.zero_)
+        check(torch.equal(out, got),
+              "[mla-decode] kernel alone != the wrapper's result")
+        plain_ms = replay_ms(lambda: kmla.mla_decode_torch(
+            *args, pos, scale=MLA_SCALE), iters=50)
+        bound, by = mla_bound_ms(n, B, H, R, P, N, V)
+        print(f"[mla-decode] {n} filled: wrapper {ms:.4f} ms (eager), "
+              f"kernel alone {cold_ms:.4f} ms cold ({L2_FLUSH_BYTES >> 20} "
+              f"MB written before each) and {warm_ms:.4f} ms warm (weights "
+              f"in L2), plain {plain_ms:.4f} ms (replayed, every slot), "
+              f"bound {bound:.4f} ms ({by}): kernel cold {cold_ms / bound:.2f}"
+              f"x the bound, warm {warm_ms / bound:.2f}x; splits {S} in "
+              f"clusters of {cs} ({clusters} fit at once), {sms} SMs")
+        if n == 2350:
+            entry = dict(
+                name="mla_decode", route="cuda",
+                source="src/repro_torch/kernels/csrc/mla_decode.cu",
+                replaces=None, max_abs_err=err, ms=ms,
+                kernel_only_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None,
+                shape=f"H={H} r={R} rope={P} L={L}, {n} filled, bf16, cold")
+        del got, again, want, diff, q_abs, part, part_ml, out
+    del args, flush
+    free_cuda()
+    return mla_served_launches(), entry
+
+
+def mla_served_launches():
+    """The kernel's launches inside a served decode: DeepSeek-V3's smoke
+    preset in bf16 through ``ServingEngine`` on the card (one replica;
+    the warm-up captures the decode graphs), 2 requests of ``LLM_PROMPT``
+    tokens and ``LLM_NEW`` new ones, counted from zero over the serve:
+    three a call at each MLA layer of every decode step (the graphs'
+    replays counted by ``ops.CountedGraph``), none in a prefill; the
+    tokens equal to the eager decode's (``eager_serve``)."""
+    cfg = get_config("deepseek-v3-671b", preset="smoke").replace(
+        dtype="bfloat16", param_dtype="bfloat16")
+    params = init_model(cfg, torch.Generator(device=DEV).manual_seed(SEED),
+                        device=DEV)
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size - 1, LLM_PROMPT)
+                    .astype(np.int32), LLM_NEW, 0.0) for i in range(2)]
+    eng = ServingEngine(cfg, params=params, n_replicas=1,
+                        cache_len=LLM_CACHE_LEN, device=DEV)
+    eng.warmup(LLM_PROMPT)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    layers = len(cfg.layer_specs())
+    want = 3 * layers * len(reqs) * LLM_NEW
+    eager = eager_serve(cfg, params, reqs)
+    same = all(eager[r.rid] == r.tokens.tolist() for r in out["responses"])
+    print(f"[mla-decode] served decode (deepseek-v3 smoke, bf16, {layers} "
+          f"MLA layers, {len(reqs)} requests of {LLM_PROMPT} + {LLM_NEW} "
+          f"tokens): launches {launches}, mla_decode {want} expected (3 a "
+          f"call, {LLM_NEW} decode steps a request, none in a prefill); "
+          f"tokens equal to the eager decode's: {same}")
+    check(launches["mla_decode"] == want and same,
+          f"[mla-decode] served decode: launches {launches}, tokens equal "
+          f"{same}")
+    return launches
+
+
 def flash_f64(q, k, v):
     """Causal attention in float64, a head at a time: the function with
     no float32 rounding, to measure both float32 versions against."""
@@ -3810,6 +4048,15 @@ def serve_llm(tag, cfg, params):
     t0 = time.perf_counter()
     out = eng.serve(reqs)
     wall = time.perf_counter() - t0
+    if cfg.mla is not None:
+        n = ops.launches()["mla_decode"]
+        layers = len(cfg.layer_specs())
+        want = 3 * layers * LLM_REQUESTS * LLM_NEW
+        print(f"[{tag}] MLA decode launches counted over the timed serve: "
+              f"{n}, {want} expected (3 a call at each of {layers} layers "
+              f"in each of the {LLM_REQUESTS} x {LLM_NEW} decode steps)")
+        check(n == want, f"{tag}: the served decode launched the MLA "
+              f"decode kernel {n} times, not {want}")
     log = None
     if cfg.moe is not None:
         n = ops.launches()["routed_experts"]
@@ -4735,6 +4982,7 @@ def main() -> int:
         profile="--profile" in sys.argv[1:])
     entries.update(attn_entries)
     by_path["moe_experts"], entries["routed_experts"] = phase_moe_experts()
+    by_path["mla_decode"], entries["mla_decode"] = phase_mla_decode()
     by_path["fused"] = phase_fused(params, cfg, frames,
                                    profile="--profile" in sys.argv[1:])
     by_path["parallel"] = phase_parallel()
@@ -4781,7 +5029,7 @@ def main() -> int:
         e["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
         check(e["launches"] > 0, f"{k} was never launched on a main path")
-    check(len(entries) == 9, f"kernels line has {len(entries)} entries")
+    check(len(entries) == 10, f"kernels line has {len(entries)} entries")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(entries.values())}))
     print(gpu_line())

@@ -19,8 +19,9 @@ version's bit for bit, each operation rounded once.  The two attention
 kernels drop it: each compiles its float32 and bfloat16 instances from
 one template and writes its hot sums with explicit ``__fmaf_rn`` /
 ``__fmul_rn`` / ``__fadd_rn``, so contraction cannot make the instances
-differ.  The routed-experts kernel drops it too: its dot products are
-fused multiply-adds by design, held to the plain version by a tolerance.
+differ.  The routed-experts and MLA decode kernels drop it too: their dot
+products are fused multiply-adds (or tensor-core products) by design,
+held to the plain versions by a tolerance.
 Division and ``expf`` stay IEEE everywhere (no ``--use_fast_math``).
 
 Every wrapper takes its launcher (``function``), its device
@@ -43,7 +44,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("nms", "association", "roi", "iou", "flash_attention",
-           "decode_attention", "rwkv_scan", "routed_experts")
+           "decode_attention", "rwkv_scan", "routed_experts", "mla_decode")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")

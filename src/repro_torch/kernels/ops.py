@@ -19,6 +19,7 @@ import torch
 from . import association, iou, roi
 from . import decode_attention as kdecode
 from . import flash_attention as kflash
+from . import mla_decode as kmla
 from . import nms as knms
 from . import routed_experts as krouted
 from . import rwkv_scan as krwkv
@@ -26,6 +27,7 @@ from .association import greedy_assign_cuda, greedy_assign_torch
 from .decode_attention import decode_attention_cuda, decode_attention_torch
 from .flash_attention import flash_attention_cuda, flash_attention_torch
 from .iou import iou_matrix_cuda, iou_matrix_torch
+from .mla_decode import mla_decode_cuda, mla_decode_torch
 from .nms import batched_nms_cuda, batched_nms_torch
 from .roi import (crop_resize_cuda, crop_resize_torch, uncrop_boxes_cuda,
                   uncrop_boxes_torch)
@@ -42,7 +44,8 @@ _COUNTERS = {"batched_nms": (knms, "LAUNCHES"),
              "flash_attention": (kflash, "LAUNCHES"),
              "decode_attention": (kdecode, "LAUNCHES"),
              "rwkv_scan": (krwkv, "LAUNCHES"),
-             "routed_experts": (krouted, "LAUNCHES")}
+             "routed_experts": (krouted, "LAUNCHES"),
+             "mla_decode": (kmla, "LAUNCHES")}
 
 
 def launches() -> Dict[str, int]:
@@ -233,3 +236,16 @@ def routed_expert_ffn(x_disp, slot_w, w_gate, w_up, w_down):
     if x_disp.device.type == "cpu":
         return routed_expert_ffn_torch(*args)
     return routed_expert_ffn_cuda(*args)
+
+
+def mla_decode(q_nope, q_pe, ckv, kpe, wk_b, wv_b, decode_pos, *, scale,
+               window=None):
+    """MLA's weight-absorbed decode attention over the latent ring:
+    q_nope (B, 1, H, nope), q_pe (B, 1, H, rope), ckv (B, L, r), kpe (B,
+    L, rope), wk_b (r, H, nope), wv_b (r, H, v), ``decode_pos`` an int or
+    a 0-d int64 tensor -> (B, 1, H, v).  On a card (bf16 only) only the
+    filled slots are read.  See ``kernels.mla_decode``."""
+    args = (q_nope, q_pe, ckv, kpe, wk_b, wv_b, decode_pos)
+    if q_nope.device.type == "cpu":
+        return mla_decode_torch(*args, scale=scale, window=window)
+    return mla_decode_cuda(*args, scale=scale, window=window)

@@ -12,7 +12,9 @@ sliding window for SWA variants, else the max sequence length).  As in
 the reference, attention is plain tensor code here (``sdpa`` and the
 chunked online softmax of ``_sdpa_chunked``), not the flash or decode
 kernels of ``repro_torch.kernels``.  Scores are taken in float32 and the
-probabilities cast back to the query dtype.
+probabilities cast back to the query dtype.  The one exception is MLA's
+weight-absorbed decode, which in bf16 on a card takes the MLA decode
+kernel (``kernels.mla_decode``, whose plain version the CPU takes).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import mla_decode, ops
 from . import layers
 from .config import LayerSpec, MLAConfig, ModelConfig
 from .rope import apply_rope, yarn_mscale
@@ -306,7 +309,6 @@ def apply_mla(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
     q_nope, q_pe = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta, "full",
                       cfg.rope_scaling)
-    q = torch.cat([q_nope, q_pe], dim=-1)
 
     kv = x @ p["wkv_a"]
     ckv = layers.rms_norm(kv[..., :m.kv_lora_rank], p["kv_norm"]["scale"],
@@ -320,6 +322,7 @@ def apply_mla(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
 
     new_cache = None
     if mode in ("train", "prefill"):
+        q = torch.cat([q_nope, q_pe], dim=-1)
         k_nope, v = _mla_expand(p, cfg, ckv)
         k = torch.cat([k_nope, kpe[:, :, None].expand(B, T, H,
                                                       m.qk_rope_dim)],
@@ -335,25 +338,29 @@ def apply_mla(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
         # materializes.  Scores, probabilities and context in float32.
         L = cache["ckv"].shape[1]
         new_cache = _write_latent(cache, ckv, kpe, decode_pos % L)
-        cckv, ckpe = new_cache["ckv"], new_cache["kpe"]
-        wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_dim)
-        wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
-        q_abs = torch.einsum("bthn,rhn->bthr", q_nope, wk_b)   # (B,1,H,r)
-        s = torch.einsum("bthr,bsr->bhts", q_abs.float(), cckv.float())
-        s = s + torch.einsum("bthp,bsp->bhts", q_pe.float(), ckpe.float())
-        s = s * scale
-        k_pos, valid = _ring_positions(L, decode_pos + 1, x.device)
-        k_pos = k_pos[None].expand(B, L)
-        valid = valid[None].expand(B, L)
-        mask = make_mask(positions, k_pos, cfg.causal, window, valid)
-        s = torch.where(mask, s, NEG_INF)
-        prob = torch.softmax(s, dim=-1)
-        ctx = torch.einsum("bhts,bsr->bthr", prob, cckv.float())
-        out = torch.einsum("bthr,rhv->bthv", ctx,
-                           wv_b.float()).to(x.dtype)
+        args = (q_nope, q_pe, new_cache["ckv"], new_cache["kpe"],
+                p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_dim),
+                p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim),
+                decode_pos)
+        decode = (ops.mla_decode if _on_card(*args[:6])
+                  else mla_decode.mla_decode_torch)
+        out = decode(*args, scale=scale, window=window)
 
     y = out.reshape(B, T, H * m.v_head_dim) @ p["wo"]
     return y, new_cache
+
+
+def _on_card(*tensors) -> bool:
+    """Whether the absorbed decode takes the MLA decode kernel
+    (``kernels.ops.mla_decode``), which reads only the ring's filled
+    slots: bf16 CUDA tensors (the CPU's and the cost model's meta
+    tensors, and float32, take the plain version; ``ops`` never falls
+    back) and no gradient to record (training's decode, if any, keeps
+    autograd's plain version)."""
+    return (tensors[0].is_cuda
+            and all(t.dtype == torch.bfloat16 for t in tensors)
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in tensors)))
 
 
 def _write_latent(cache, ckv, kpe, slot):

@@ -402,6 +402,13 @@ def _routed_args(device):
             torch.zeros((2, 16, 8), device=device))
 
 
+def _mla_args(device):
+    z = lambda *shape: torch.zeros(  # noqa: E731
+        shape, dtype=torch.bfloat16, device=device)
+    return (z(1, 1, 4, 32), z(1, 1, 4, 16), z(1, 24, 64), z(1, 24, 16),
+            z(64, 4, 32), z(64, 4, 32), 5)
+
+
 NEW_CALLS = {"iou_matrix": (_iou_args, {}),
              "flash_attention": (_flash_args, {}),
              "decode_attention": (_decode_args, {}),
@@ -415,6 +422,8 @@ def _call(kernel, device):
     """One call of ``ops.<kernel>`` on small tensors on ``device``."""
     if kernel == "routed_experts":
         return ops.routed_expert_ffn(*_routed_args(device))
+    if kernel == "mla_decode":
+        return ops.mla_decode(*_mla_args(device), scale=0.25)
     if kernel in NEW_CALLS:
         make, kw = NEW_CALLS[kernel]
         return getattr(ops, kernel)(*make(device), **kw)
@@ -430,11 +439,11 @@ def _call(kernel, device):
 
 KERNELS = ["batched_nms", "greedy_assign", "crop_resize", "uncrop_boxes",
            "iou_matrix", "flash_attention", "decode_attention", "rwkv_scan",
-           "routed_experts"]
+           "routed_experts", "mla_decode"]
 PLAIN = ["batched_nms_torch", "greedy_assign_torch", "crop_resize_torch",
          "uncrop_boxes_torch", "iou_matrix_torch", "flash_attention_torch",
          "decode_attention_torch", "rwkv_scan_torch",
-         "routed_expert_ffn_torch"]
+         "routed_expert_ffn_torch", "mla_decode_torch"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS + ["nms_serial"])
@@ -481,14 +490,15 @@ def test_roi_wrappers_refuse_non_cuda_tensors(monkeypatch, kernel):
 
 def test_reset_launches_zeroes_every_counter(monkeypatch):
     from repro_torch.kernels import (association, decode_attention,
-                                     flash_attention, iou, nms, roi,
-                                     routed_experts, rwkv_scan)
+                                     flash_attention, iou, mla_decode, nms,
+                                     roi, routed_experts, rwkv_scan)
     for mod, attr in ((nms, "LAUNCHES"), (association, "LAUNCHES"),
                       (roi, "CROP_LAUNCHES"), (roi, "UNCROP_LAUNCHES"),
                       (iou, "LAUNCHES"), (flash_attention, "LAUNCHES"),
                       (decode_attention, "LAUNCHES"),
                       (rwkv_scan, "LAUNCHES"),
-                      (routed_experts, "LAUNCHES")):
+                      (routed_experts, "LAUNCHES"),
+                      (mla_decode, "LAUNCHES")):
         monkeypatch.setattr(mod, attr, 7)
     assert set(ops.launches()) == set(KERNELS)
     assert set(ops.launches().values()) == {7}
@@ -526,6 +536,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     out, state = _call("rwkv_scan", "cpu")
     assert out.shape == (1, 2, 16, 8) and state.shape == (1, 2, 8, 8)
     assert _call("routed_experts", "cpu").shape == (2, 4, 8)
+    assert _call("mla_decode", "cpu").shape == (1, 1, 4, 32)
     keep, valid = _call("nms_serial", "cpu")
     assert keep.shape == (4,) and valid.shape == (4,)
     assert ops.launches() == before
@@ -551,7 +562,27 @@ WRAPPERS = {"iou_matrix_cuda": ("iou", _iou_args, {}),
             "flash_attention_cuda": ("flash_attention", _flash_args, {}),
             "decode_attention_cuda": ("decode_attention", _decode_args, {}),
             "rwkv_scan_cuda": ("rwkv_scan", _rwkv_args, {}),
-            "routed_expert_ffn_cuda": ("routed_experts", _routed_args, {})}
+            "routed_expert_ffn_cuda": ("routed_experts", _routed_args, {}),
+            "mla_decode_cuda": ("mla_decode", _mla_args, {"scale": 0.25})}
+
+
+@pytest.mark.parametrize("name", build.SOURCES)
+def test_each_kernel_source_opens_with_its_note(name):
+    """Every hand-written kernel's source opens with the note the port
+    keeps beside each kernel: the TPU kernel it replaces, or that it
+    replaces none and why, and what bounds it on the card; and its
+    wrapper module counts its launches in a counter ``ops.launches``
+    reads."""
+    import importlib
+    head = (build.CSRC / f"{name}.cu").read_text().split("#include")[0]
+    assert "Replaces" in head or "replaces" in head, name
+    assert "Replaces no TPU kernel" in head or "JAX package's" in head, name
+    assert "Bound on the card" in head, name
+    counters = {m.__name__.rsplit(".", 1)[-1] for m, _ in
+                ops._COUNTERS.values()}
+    assert name in counters, name
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    assert any(a.endswith("LAUNCHES") for a in vars(mod)), name
 
 
 @pytest.mark.parametrize("wrapper", sorted(WRAPPERS))

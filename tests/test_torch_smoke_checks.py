@@ -232,6 +232,42 @@ def test_rwkv_bound_counts_float32_operations_in_either_type(dtype):
     assert round(bound, 4) == 0.1402
 
 
+@pytest.mark.parametrize("n,ms,by", [(1000, 0.0104, "bytes"),
+                                     (2350, 0.0108, "bytes"),
+                                     (4608, 0.0116, "bytes"),
+                                     (100000, 0.0552, "operations")])
+def test_mla_bound_is_the_weights_and_filled_slots_or_the_float32_work(
+        n, ms, by):
+    """``[mla-decode]``'s least time at dsv3-decode's shapes: W_kb and
+    W_vb (33.6 MB in bf16) and the n filled slots (1,152 bytes each) at
+    3.35 TB/s, against the operations as the kernel runs them: the
+    scores' 2 H n (r + rope) and the context's 2 H n r three times (P's
+    bf16 pieces) at the bf16 tensor-core rate, and the absorb's and the
+    combine's 2 H r (nope + v) at the float32 rate; the slots past n are
+    never read.  The ring's 4,608 slots are bytes-bound."""
+    sh = smoke.MLA_SHAPE
+    bound, got_by = smoke.mla_bound_ms(n, sh["B"], sh["H"], sh["R"], sh["P"],
+                                       sh["N"], sh["V"])
+    assert got_by == by and round(bound, 4) == ms
+    nbytes = 2 * (512 * 128 * 256 + n * 576 + 128 * 320)
+    t_ops = (2 * 128 * n * (576 + 3 * 512) / smoke.BF16_OPS_PER_S
+             + 2 * 128 * 512 * 256 / smoke.FP32_OPS_PER_S)
+    assert bound == pytest.approx(max(nbytes / smoke.HBM_BYTES_PER_S,
+                                      t_ops) * 1e3)
+
+
+def test_mla_inputs_slice_q_as_the_layer_does(monkeypatch):
+    monkeypatch.setattr(smoke, "DEV", "cpu")
+    g = torch.Generator().manual_seed(0)
+    q_nope, q_pe, ckv, kpe, wk_b, wv_b = smoke.mla_inputs(
+        g, B=1, H=4, R=64, P=16, N=32, V=32, L=24)
+    assert q_nope.shape == (1, 1, 4, 32) and not q_nope.is_contiguous()
+    assert q_pe.shape == (1, 1, 4, 16) and q_pe.is_contiguous()
+    assert ckv.shape == (1, 24, 64) and kpe.shape == (1, 24, 16)
+    assert wk_b.shape == (64, 4, 32) and wv_b.shape == (64, 4, 32)
+    assert {t.dtype for t in (q_nope, ckv, wk_b)} == {torch.bfloat16}
+
+
 @pytest.fixture(scope="module")
 def qwen3_smoke_f32():
     import numpy as np
